@@ -7,16 +7,26 @@ Phases, one line of output each (or a few):
 
 1. build   - compiles the CUDA kernels (``csrc/*.cu``, one plain nvcc call)
              and the host chemistry library (g++), printing seconds and paths;
-2. kernels - K1 (decode attention) and K2 (auction) on the card at the main
-             path's shapes, each held against its plain PyTorch version (K2
-             also against scipy), with times;
+2. kernels - K1 (decode attention), K2 (auction) and K3 (beam attention) on
+             the card at their paths' shapes, each held against its plain
+             PyTorch version (K2 also against scipy), with times;
 3. main    - ``evaluate_molecules`` at the full width of ``ModelConfig()`` with
              the committed phase3 weights on 8 simulated molecules, CLIP off,
              fan-out 128, bf16 decoding; the kernels' launch counters are set
              to 0 just before the run and read just after;
 4. check   - the run's outputs: every scored pair against scipy's optimum,
              and the greedy decode on the card (K1) against the CPU's plain
-             path at float32, token for token.
+             path at float32, token for token;
+5. beam    - (a) beam mode (bench.py's ``BENCH_MODE=beam``): 128 molecules
+             with seeded uniform spectra, beam 5, 128 steps without early
+             exit, bf16, one warm-up and two timed calls with the counters
+             reset before each (K3: 768 launches a call); (b) at float32 on 8
+             of those molecules, ``beam_search`` (K3) on the card against
+             ``beam_search_materialized`` (K1) on the card and against the
+             CPU's plain path, token for token; (c) ``evaluate_molecules`` on
+             the 8 molecules of phase 3 with the beam and greedy hypotheses
+             in the pools, every gated beam and greedy hypothesis checked to
+             be there.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -26,6 +36,7 @@ without a CUDA device, and without the rest of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,9 +48,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 K1_SOURCE = "multimodalspectraltransformer_torch/csrc/decode_attention.cu"
-K1_REPLACES = "multimodalspectraltransformer_tpu/ops/decode_attention.py:47"
+K1_REPLACES = "multimodalspectraltransformer_tpu/ops/decode_attention.py:49"
 K2_SOURCE = "multimodalspectraltransformer_torch/csrc/auction.cu"
-K2_REPLACES = "multimodalspectraltransformer_tpu/ops/auction.py:29"
+K2_REPLACES = "multimodalspectraltransformer_tpu/ops/auction.py:30"
+K3_SOURCE = "multimodalspectraltransformer_torch/csrc/beam_attention.cu"
+K3_REPLACES = "multimodalspectraltransformer_tpu/ops/beam_attention.py:34"
 PHASE3 = "weights/mmt_r4_phase3.msgpack.gz"
 
 
@@ -198,14 +211,94 @@ def check_k2(dev) -> None:
             measure_k2(cost, f"B={B} N={cost.shape[1]}", timed=(B, n_max) == (480, 64))
 
 
+def ancestry_bias(gen, B: int, K: int, T: int, pos: int, dtype, dev):
+    """The beam step's bias [B, K, T*K] from a random ancestry up to ``pos``."""
+    import torch
+
+    from multimodalspectraltransformer_torch.decode import functional
+
+    anc = torch.randint(0, K, (B, K, T), generator=gen, device=dev)
+    anc[:, :, pos + 1 :] = torch.arange(K, device=dev)[None, :, None]
+    return functional.ancestry_bias(anc, pos, dtype)
+
+
+def measure_k3(q, kv, bias, n_live: int, rtol: float, label: str) -> dict:
+    """Hold K3 against its plain version on (q, kv, bias, n_live); time the
+    kernel, the plain version and SDPA with the same bias as its mask, and
+    compute the bound from what this bias needs: the cache columns of b that
+    some beam of b attends to (every head of b shares the bias), q, out and
+    the bias rows; the flops of the (b, k, column) triples it keeps. The
+    bound of a kernel that reads every live column, as K3 does, is kept
+    beside it as ``all_columns_bound_ms``."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalspectraltransformer_torch.ops import beam_attention as k3
+
+    out = k3.beam_attention(q, kv, bias, n_live)
+    ref = k3.beam_attention_plain(q, kv, bias, n_live)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = rtol * max(1.0, ref.float().abs().max().item())
+    B, H, K, Dh = q.shape
+    ms = cuda_ms(lambda: k3.beam_attention(q, kv, bias, n_live), 200)
+    plain_ms = cuda_ms(lambda: k3.beam_attention_plain(q, kv, bias, n_live), 50)
+    k_live = kv[:, :, :Dh, :n_live].transpose(-1, -2).contiguous()
+    v_live = kv[:, :, Dh:, :n_live].transpose(-1, -2).contiguous()
+    mask = bias[:, None, :, :n_live]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k_live, v_live, attn_mask=mask,
+                                                            scale=1.0), 50)
+    kept = torch.isfinite(bias[:, :, :n_live])  # [B, K, n_live]
+    needed_cols = int(kept.any(dim=1).sum().item())  # (b, column) pairs some beam attends to
+    small = (2 * B * H * K * Dh + B * K * n_live) * q.element_size()  # q, out, bias rows
+    col_bytes = H * 2 * Dh * q.element_size()  # one column of b's cache, all heads
+    flops = H * int(kept.sum().item()) * (4 * Dh + 4)  # q.k, p.v multiply-adds, bias, max, exp, sum
+    t_bytes, t_ops = (small + col_bytes * needed_cols) / HBM_BYTES_PER_S, flops / F32_FLOPS
+    all_cols_ms = (small + col_bytes * B * n_live) / HBM_BYTES_PER_S * 1e3
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+               all_columns_bound_ms=all_cols_ms)
+    log(f"[kernels] K3 {label}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if err <= tol else 'FAIL'}; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}; {needed_cols} of {B * n_live} columns needed), all live columns "
+        f"{all_cols_ms:.5f} ms")
+    if not err <= tol:
+        raise AssertionError(f"K3 disagrees with its plain version ({label})")
+    return row
+
+
+def check_k3(dev) -> dict:
+    """K3 at beam mode's shape (B=128, H=16, K=5, Dh=8, T=128) at pos 0, 63
+    and 127, and at K=10, B=32; fp32 (1e-5 relative) and bf16 (2^-7: the
+    plain version rounds the probabilities to bf16 as the Pallas kernel does,
+    the kernel's online softmax cannot). Returns the bf16 beam-mode row at
+    pos 63, the mean position of a 128-step decode."""
+    import torch
+
+    H, Dh, T = 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    for B, K in ((128, 5), (32, 10)):
+        q32 = torch.randn(B, H, K, Dh, generator=gen, device=dev) / Dh**0.5
+        kv32 = torch.randn(B, H, 2 * Dh, T * K, generator=gen, device=dev)
+        for pos in (0, 63, 127):
+            bias32 = ancestry_bias(gen, B, K, T, pos, torch.float32, dev)
+            for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+                label = f"B={B} K={K} {str(dtype)[6:]} pos={pos}"
+                rows[label] = measure_k3(q32.to(dtype), kv32.to(dtype), bias32.to(dtype),
+                                         (pos + 1) * K, rtol, label)
+    return rows["B=128 K=5 bfloat16 pos=63"]
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path and its checks
 # ---------------------------------------------------------------------------
 
 def main_path(dev, n_mols: int = 8, fanout: int = 128):
     """Drive evaluate_molecules once (after a warm-up) with the launch
-    counters reset just before; return the counts, the summary, and the
-    HSQC cost tensor the run's scorer solved (rebuilt from its pairs)."""
+    counters reset just before; return the counts, the HSQC cost tensor the
+    run's scorer solved (rebuilt from its pairs), and the run's records,
+    model, decode configuration and results."""
     import torch
     from scipy.optimize import linear_sum_assignment
 
@@ -292,7 +385,126 @@ def main_path(dev, n_mols: int = 8, fanout: int = 128):
         f"{'identical' if same else 'DIFFER'}")
     if not same:
         raise AssertionError("greedy decode on the card differs from the CPU's plain path")
-    return launches, cost
+    return launches, cost, (records, model, dcfg, results)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the beam path
+# ---------------------------------------------------------------------------
+
+def beam_path(dev, model, records, dcfg, main_results) -> int:
+    """Beam mode, its float32 tokens against the materialized search and the
+    CPU, and the harness with beam and greedy hypotheses in the pools.
+    Returns K3's launches in one beam-mode call."""
+    import torch
+
+    from multimodalspectraltransformer_torch.chem import api as chem
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.decode import samplers
+    from multimodalspectraltransformer_torch.eval import beam_bench, harness
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.ops import auction as k2
+    from multimodalspectraltransformer_torch.ops import beam_attention as k3
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+    from multimodalspectraltransformer_torch.utils import vocab
+
+    cfg = model.cfg
+    n, K, L = beam_bench.BATCH, beam_bench.BEAM, beam_bench.MAX_LEN
+    # (a) beam mode
+    batch = beam_bench.beam_mode_batch(cfg, n, device=dev)
+    stages, _ = beam_bench.run(model, batch, K, L)
+    log(f"[beam] warm-up call: {stages['total']:.2f} s")
+    for call in range(2):
+        k1.reset_launches()
+        k2.reset_launches()
+        k3.reset_launches()
+        stages, res = beam_bench.run(model, batch, K, L)
+        launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+        s = res.scores
+        log(f"[beam] beam mode call {call}: {n} molecules, beam {K}, {L} steps, bf16: "
+            f"{stages['total']:.3f} s, {n / stages['total']:.3f} mols/s; stage seconds: "
+            f"encode={stages['encode']:.3f} beam={stages['beam']:.3f}; launches: K1={launches['K1']} "
+            f"K2={launches['K2']} K3={launches['K3']}")
+        if launches["K3"] != cfg.num_decoder_layers * L:
+            raise AssertionError(f"beam mode launched K3 {launches['K3']} times, not "
+                                 f"{cfg.num_decoder_layers * L}")
+        if (res.tokens.shape != (n, K, L) or not bool(torch.isfinite(s).all())
+                or not bool((s[:, 1:] <= s[:, :-1]).all())):
+            raise AssertionError("beam mode: beams of the wrong shape, non-finite or unsorted scores")
+    k3_launches = launches["K3"]
+
+    # (b) float32 tokens: K3 on the card, K1 (materialized) on the card, the CPU's plain path
+    sub = mmt.MMTBatch(*(x[:8] for x in batch))
+    enc = model.encode(sub)
+    params = model.state_dict()
+    mem, kpm = enc.memory, enc.memory_key_padding_mask
+    t0 = time.perf_counter()
+    a = samplers.beam_search(params, cfg, mem, kpm, K, 1.0, L, device=dev)
+    b = samplers.beam_search_materialized(params, cfg, mem, kpm, K, 1.0, L, device=dev)
+    c = samplers.beam_search({k: v.cpu() for k, v in params.items()}, cfg, mem.cpu(), kpm.cpu(), K,
+                             1.0, L, device="cpu")
+    same_b = torch.equal(a.tokens.cpu(), b.tokens.cpu())
+    same_c = torch.equal(a.tokens.cpu(), c.tokens)
+    d_score = max((a.scores.cpu() - b.scores.cpu()).abs().max().item(),
+                  (a.scores.cpu() - c.scores).abs().max().item())
+    log(f"[beam] fp32 beam tokens of 8 molecules, card (K3) vs card materialized (K1): "
+        f"{'identical' if same_b else 'DIFFER'}; vs CPU (plain): {'identical' if same_c else 'DIFFER'}; "
+        f"max score difference {d_score:.2e} (tol 1e-4); {time.perf_counter() - t0:.1f} s")
+    if not (same_b and same_c and d_score <= 1e-4):
+        raise AssertionError("fp32 beam search on the card differs")
+
+    # (c) the harness with beam and greedy hypotheses in the pools
+    bcfg = dataclasses.replace(dcfg, beam_candidates=K, greedy_in_pool=True)
+    k1.reset_launches()
+    k2.reset_launches()
+    k3.reset_launches()
+    results, summary = harness.evaluate_molecules(records, model, bcfg, seed=0, device=dev)
+    launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+    stages = " ".join(f"{k}={v:.3f}" for k, v in summary.stage_seconds.items())
+    log(f"[beam] evaluate_molecules with beam_candidates={K}, greedy_in_pool: {summary.n} molecules, "
+        f"{summary.mols_per_sec:.3f} mols/s, top-1 {summary.top_k_accuracy[1]:.3f}, "
+        f"mns_exact {summary.mns_exact:.3f}; launches: K1={launches['K1']} K2={launches['K2']} "
+        f"K3={launches['K3']}")
+    log(f"[beam] stage seconds: {stages}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the harness with beam candidates launched kernel {name} no time")
+    # the beams the harness merged, decoded again, and the greedy hypothesis of
+    # the same run: every one that passes the canonical and MW gates is in its
+    # molecule's pool
+    feats = [f for f in (dp.featurize(r, cfg) for r in records) if f is not None]
+    enc = model.encode(mmt.MMTBatch(*dp.collate(feats).inputs).to(dev))
+    beams = samplers.beam_search(params, cfg, enc.memory, enc.memory_key_padding_mask, K, 1.0,
+                                 bcfg.max_len, compute_dtype=bcfg.compute_dtype, device=dev)
+    toks = beams.tokens.cpu().numpy()
+
+    def gated(can, f) -> bool:
+        mw = chem.mol_wt(can) if can is not None else None
+        return mw is not None and (not bcfg.mw_filter
+                                   or abs(round(mw) - round(float(f["mw"]))) <= bcfg.mw_delta)
+
+    n_gated = {"beam": 0, "greedy": 0}
+    for i, (res, f) in enumerate(zip(results, feats)):
+        pool = {c.smiles for c in res.candidates}
+        beam_cans = chem.batch_canonicalize([vocab.ids_to_smiles(r) for r in toks[i]])
+        greedy_can = chem.batch_canonicalize([res.greedy])[0]
+        for kind, cans in (("beam", beam_cans), ("greedy", [greedy_can])):
+            for can in cans:
+                if not gated(can, f):
+                    continue
+                n_gated[kind] += 1
+                if can not in pool:
+                    raise AssertionError(f"{kind} hypothesis {can} passed the gates but is not in "
+                                         f"the pool")
+    before = sum(len(r.candidates) for r in main_results)
+    after = sum(len(r.candidates) for r in results)
+    log(f"[check] pools: {before} candidates without beam, {after} with beam and greedy; "
+        f"{n_gated['beam']} beam and {n_gated['greedy']} greedy hypotheses pass the gates, all "
+        f"in their pools")
+    for kind, n in n_gated.items():
+        if n == 0:
+            raise AssertionError(f"no {kind} hypothesis passed the gates")
+    return k3_launches
 
 
 def main() -> int:
@@ -323,7 +535,9 @@ def main() -> int:
 
     check_k1(dev)
     check_k2(dev)
-    launches, hsqc_cost = main_path(dev)
+    k3_row = check_k3(dev)
+    launches, hsqc_cost, (records, model, dcfg, results) = main_path(dev)
+    launches["K3"] = beam_path(dev, model, records, dcfg, results)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     q = (torch.randn(1024, 16, 8, generator=gen, device=dev) / 8**0.5).to(torch.bfloat16)
@@ -336,6 +550,8 @@ def main() -> int:
              launches=launches["K1"], **k1_row),
         dict(name="auction", route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
              launches=launches["K2"], **k2_row),
+        dict(name="beam_attention", route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,
+             launches=launches["K3"], **k3_row),
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,12 @@ temperature is a per-lane vector [W*F, 1].
 
 Rounds run one after another: the eager decode loop blocks the host at its
 early-exit checks, so dispatching round k+1 before filtering round k (the
-JAX ``lookahead``) would buy no overlap here and is not done. Beam
-augmentation (``beam_candidates``) is not ported yet.
+JAX ``lookahead``) would buy no overlap here and is not done. With
+``beam_candidates > 0`` one batched beam search (kernel K3) runs after the
+sampling rounds, and its hypotheses join each pool through the same
+canonicalize/dedup/MW gates, as in the JAX package (which dispatches the
+beam decode first and fetches it last; the beam decode is deterministic, so
+only the merge order matters).
 """
 
 from __future__ import annotations
@@ -71,13 +75,8 @@ def _filter_block(
         if len(out.smiles) >= want:
             return
         out.n_sampled += 1
-        if can is None or can in seen:
+        if can is None or can in seen or not mw_matches(can, target_mw, mw_delta):
             continue
-        if target_mw is not None:
-            mw = chem.mol_wt(can)
-            # reference compares rounded MW within +-delta (`:1083`)
-            if mw is None or abs(round(mw) - round(target_mw)) > mw_delta:
-                continue
         seen.add(can)
         if np.ndim(prow) == 0:  # device-reduced sequence probability
             p = float(prow)
@@ -88,6 +87,15 @@ def _filter_block(
         out.seq_probs.append(p)
 
 
+def mw_matches(can: str, target_mw: Optional[float], mw_delta: float) -> bool:
+    """The reference's MW gate (`:1083`): rounded weights within +-delta;
+    everything passes without a target."""
+    if target_mw is None:
+        return True
+    mw = chem.mol_wt(can)
+    return mw is not None and abs(round(mw) - round(target_mw)) <= mw_delta
+
+
 def round_widths(B: int) -> tuple[int, ...]:
     """The four static round-shrink widths {ceil(B/4), ceil(B/2), ceil(2B/3), B}."""
     return (max(1, (B + 3) // 4), max(1, (B + 1) // 2), max(1, (2 * B + 2) // 3), B)
@@ -95,6 +103,24 @@ def round_widths(B: int) -> tuple[int, ...]:
 
 def round_seed(seed: int, round_idx: int) -> int:
     return (int(seed) * 1_000_003 + round_idx) % (2**63)
+
+
+def generate_candidates(
+    params,
+    mcfg: ModelConfig,
+    memory: torch.Tensor,  # [1, S, D]: one molecule's encoder memory
+    memory_kpm: torch.Tensor,
+    seed: int = 0,
+    dcfg: DecodeConfig = DecodeConfig(),
+    target_mw: Optional[float] = None,
+    device: DeviceLike = None,
+) -> CandidateSet:
+    """Temperature-escalation fan-out sampling for one molecule:
+    ``generate_candidates_batch`` with B = 1."""
+    return generate_candidates_batch(
+        params, mcfg, memory, memory_kpm, seed, dcfg,
+        target_mws=None if target_mw is None else [target_mw], device=device,
+    )[0]
 
 
 def generate_candidates_batch(
@@ -108,11 +134,11 @@ def generate_candidates_batch(
     compute_dtype: Optional[str] = None,
     on_round_accepted=None,
     device: DeviceLike = None,
+    max_len: Optional[int] = None,  # overrides dcfg.max_len (length banding)
 ) -> list[CandidateSet]:
-    """Fan-out sampling for a batch of molecules, one decode per round.
-    Round ``k`` samples from a generator seeded by ``round_seed(seed, k)``."""
-    if dcfg.beam_candidates > 0:
-        raise NotImplementedError("beam_candidates > 0: beam search is not ported yet")
+    """Fan-out sampling for a batch of molecules, one decode per round, then
+    the beam hypotheses when ``dcfg.beam_candidates > 0``. Round ``k``
+    samples from a generator seeded by ``round_seed(seed, k)``."""
     dev = resolve_device(device)
     memory, memory_kpm = memory.to(dev), memory_kpm.to(dev)
     B = memory.shape[0]
@@ -121,6 +147,8 @@ def generate_candidates_batch(
     seens: list[set] = [set() for _ in range(B)]
     want = dcfg.multinom_runs
     compute_dtype = compute_dtype or dcfg.compute_dtype
+    decode_len = max_len if max_len is not None else dcfg.max_len
+    mws = target_mws if (target_mws is not None and dcfg.mw_filter) else [None] * B
     shrink = dcfg.round_shrink and B > 1
     widths = round_widths(B) if shrink else (B,)
     gen = torch.Generator(device=dev)
@@ -137,13 +165,15 @@ def generate_candidates_batch(
         lane_temp = torch.full((W * F, 1), t, dtype=torch.float32, device=dev)
         gen.manual_seed(round_seed(seed, round_idx))
         res = samplers.multinomial_decode(
-            params, mcfg, mem, kpm, gen, lane_temp, dcfg.max_len, fanout=F,
+            params, mcfg, mem, kpm, gen, lane_temp, decode_len, fanout=F,
             compute_dtype=compute_dtype, device=dev,
         )
         return res, lanes
 
-    active = list(range(B))
+    active = list(range(B)) if want > 0 else []  # no round when no sample is wanted
     for round_idx in range(dcfg.max_temp_rounds):
+        if not active:
+            break
         res, lanes = decode(round_idx, active)
         W = len(lanes)
         toks_u8, seqp = _fetch_pack(res.tokens, res.token_probs)
@@ -155,12 +185,8 @@ def generate_candidates_batch(
         canons = chem.batch_canonicalize(flat_smiles)
         pre_lens = {b: len(outs[b].smiles) for _, b in consume}
         for ci, (j, b) in enumerate(consume):
-            _filter_block(
-                tokens[j], probs[j],
-                (target_mws[b] if target_mws is not None else None) if dcfg.mw_filter else None,
-                dcfg.mw_delta, seens[b], outs[b], want,
-                canons=canons[ci * F : (ci + 1) * F],
-            )
+            _filter_block(tokens[j], probs[j], mws[b], dcfg.mw_delta, seens[b], outs[b], want,
+                          canons=canons[ci * F : (ci + 1) * F])
             outs[b].rounds_used = round_idx + 1
         if on_round_accepted is not None:
             newly = [(b, outs[b].smiles[pre_lens[b]:]) for _, b in consume
@@ -168,9 +194,41 @@ def generate_candidates_batch(
             if newly:
                 on_round_accepted(newly)
         active = [b for b in range(B) if len(outs[b].smiles) < want]
-        if not active:
-            break
+
+    if dcfg.beam_candidates > 0:
+        _merge_beam(params, mcfg, memory, memory_kpm, dcfg, decode_len, compute_dtype, dev,
+                    mws, seens, outs, on_round_accepted)
     return outs
+
+
+def _merge_beam(params, mcfg, memory, memory_kpm, dcfg: DecodeConfig, decode_len: int,
+                compute_dtype, dev, mws: list, seens: list, outs: list, on_round_accepted) -> None:
+    """Merge the top ``dcfg.beam_candidates`` beam hypotheses of every
+    molecule into its pool, after the sampling rounds: each counts in
+    ``n_sampled``; the pool's ``seen`` set dedups them; the MW gate applies;
+    the sequence probability is exp(score); ``multinom_runs`` does not cap
+    them. One ``on_round_accepted`` call carries the additions."""
+    B, K = memory.shape[0], dcfg.beam_candidates
+    res = samplers.beam_search(params, mcfg, memory, memory_kpm, beam_size=K, max_len=decode_len,
+                               compute_dtype=compute_dtype, device=dev)
+    btoks = res.tokens.cpu().numpy()  # [B, K, T]
+    bscores = res.scores.cpu().numpy()  # [B, K] summed log-probs
+    canons = chem.batch_canonicalize([vocab.ids_to_smiles(r) for r in btoks.reshape(B * K, -1)])
+    pre = [len(o.smiles) for o in outs]
+    for b in range(B):
+        out, seen, tmw = outs[b], seens[b], mws[b]
+        for k in range(K):
+            can = canons[b * K + k]
+            out.n_sampled += 1
+            if can is None or can in seen or not mw_matches(can, tmw, dcfg.mw_delta):
+                continue
+            seen.add(can)
+            out.smiles.append(can)
+            out.seq_probs.append(float(np.exp(bscores[b, k])))
+    if on_round_accepted is not None:
+        newly = [(b, outs[b].smiles[pre[b]:]) for b in range(B) if len(outs[b].smiles) > pre[b]]
+        if newly:
+            on_round_accepted(newly)
 
 
 def greedy_smiles(

@@ -6,10 +6,13 @@ and ranking uses the spectral errors). Per batch of molecules:
 
 encode -> teacher-forced probabilities -> greedy decode -> fan-out
 multinomial candidates (temperature escalation, round-shrink,
-validity/MW/dedup filters) -> simulated HSQC/COSY spectra of the candidates
-(in a background thread that overlaps the decoding rounds) -> batched
-assignment error (kernel K2) -> rank by the average of the HSQC and COSY
-error ranks -> top-k accuracy.
+validity/MW/dedup filters; optionally the beam hypotheses,
+``DecodeConfig.beam_candidates``, and the greedy hypothesis,
+``greedy_in_pool``) -> simulated HSQC/COSY spectra of the candidates (in a
+background thread that overlaps the decoding rounds) -> batched assignment
+error (kernel K2) -> rank by the average of the HSQC and COSY error ranks ->
+top-k accuracy. ``DecodeConfig.band_max_len`` cuts the decode length to the
+batch's targets.
 """
 
 from __future__ import annotations
@@ -133,8 +136,6 @@ def evaluate_molecules(
     merged into its sampled set before simulation and ranking."""
     if clip_bundle is not None:
         raise NotImplementedError("CLIP scoring is not ported yet: pass clip_bundle=None")
-    if dcfg.greedy_in_pool or dcfg.band_max_len:
-        raise NotImplementedError("greedy_in_pool and band_max_len are not ported yet")
     dev = resolve_device(device)
     model = model.to(dev)
     mcfg = model.cfg
@@ -172,8 +173,9 @@ def evaluate_molecules(
     mark("teacher_forced")
 
     params = model.state_dict()
+    decode_len = banded_decode_len(tb.trg_tokens, dcfg.max_len) if dcfg.band_max_len else dcfg.max_len
     greedy_res = samplers.greedy_decode(
-        params, mcfg, enc.memory, enc.memory_key_padding_mask, 1.0, dcfg.max_len,
+        params, mcfg, enc.memory, enc.memory_key_padding_mask, 1.0, decode_len,
         compute_dtype=dcfg.compute_dtype, device=dev,
     )
     greedy = vocab.batch_ids_to_smiles(greedy_res.tokens.cpu().numpy())
@@ -206,9 +208,19 @@ def evaluate_molecules(
         all_cands = generation.generate_candidates_batch(
             params, mcfg, enc.memory, enc.memory_key_padding_mask, seed, dcfg,
             target_mws=[float(f["mw"]) for f in feats],
-            on_round_accepted=on_accept, device=dev,
+            on_round_accepted=on_accept, device=dev, max_len=decode_len,
         )
     mark("sampling")
+    if all_cands is not None and dcfg.greedy_in_pool:
+        # the reference's sampling_method="mix": the greedy hypothesis joins
+        # the pool through the same canonical, dedup and MW gates
+        for i, can in enumerate(greedy_cans):
+            cs = all_cands[i]
+            tmw = float(feats[i]["mw"]) if dcfg.mw_filter else None
+            if can is None or can in cs.smiles or not generation.mw_matches(can, tmw, dcfg.mw_delta):
+                continue
+            cs.smiles.append(can)
+            cs.seq_probs.append(0.0)  # ranked by spectral error, not sampling probability
     if kept_extras is not None:
         if all_cands is None:
             all_cands = [generation.CandidateSet() for _ in feats]
@@ -317,6 +329,14 @@ def evaluate_molecules(
     summary.mols_per_sec = len(results) / total if total > 0 else 0.0
     summary.stage_seconds = stages
     return results, summary
+
+
+def banded_decode_len(trg_tokens: np.ndarray, max_len: int) -> int:
+    """Decode-length banding: the smallest of {40, 56} that covers the
+    longest target (rows <SOS> ... <EOS> <PAD>*; generated sequences carry no
+    <SOS>) plus a 12-token margin and is below ``max_len``; else ``max_len``."""
+    need = int((np.asarray(trg_tokens) != vocab.PAD_ID).sum(axis=1).max()) - 1 + 12
+    return next((c for c in (40, 56) if need <= c < max_len), max_len)
 
 
 def rank_candidates_by_error(

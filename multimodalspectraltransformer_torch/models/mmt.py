@@ -58,6 +58,25 @@ class MMTBatch(NamedTuple):
                           .to(device) for x in self))
 
 
+def dummy_batch(cfg: ModelConfig, batch_size: int = 2, device: DeviceLike = None) -> MMTBatch:
+    """An all-zeros batch of the model's input shapes on ``device`` (cuda
+    unless asked otherwise); every position attended."""
+    dev = resolve_device(device)
+    P = cfg.spectrum_points
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+    return MMTBatch(
+        src_1h=z(batch_size, P, 2), mask_1h=zi(batch_size, P),
+        src_13c=z(batch_size, P), mask_13c=zi(batch_size, P),
+        src_hsqc=z(batch_size, P, 2), mask_hsqc=zi(batch_size, P),
+        src_cosy=z(batch_size, P, 2), mask_cosy=zi(batch_size, P),
+        src_ir=z(batch_size, cfg.ir_bins),
+        src_mf=zi(batch_size, cfg.mf_len), mask_mf=zi(batch_size, cfg.mf_len),
+        src_ms=zi(batch_size, cfg.ms_len), mask_ms=zi(batch_size, cfg.ms_len),
+        mw=z(batch_size),
+    )
+
+
 class EncoderOutput(NamedTuple):
     memory: torch.Tensor  # [B, S_fused, D]
     memory_key_padding_mask: torch.Tensor  # [B, S_fused] bool, True = masked

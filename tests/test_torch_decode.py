@@ -88,26 +88,6 @@ def test_decode_attention_plain_matches_pallas(pos, dtype):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_decode_attention_kernel_matches_plain_on_gpu(cuda_device):
-    """The CUDA kernel against its plain version at the decode shapes."""
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
-        q = torch.randn(1024, 16, 8, generator=gen, device=cuda_device).to(dtype)
-        kv = torch.randn(1024, 16, 16, 128, generator=gen, device=cuda_device).to(dtype)
-        for pos in (0, 31, 127):
-            out = tk1.decode_attention(q, kv, pos)
-            ref = tk1.decode_attention_plain(q, kv, pos)
-            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-
-
 # ---------------------------------------------------------------- step + samplers
 
 @pytest.mark.parametrize("group", [1, 3])

@@ -181,12 +181,13 @@ def test_ranking_and_topk_match_jax():
 
 
 def test_clip_scoring_is_refused_not_ignored():
+    """CLIP scoring (not ported yet) raises; the beam, greedy-in-pool and
+    length-banding options are ported and accepted."""
     _params, model = _phase3()
     with pytest.raises(NotImplementedError, match="CLIP"):
         th.evaluate_molecules([], model, clip_bundle=((), ()), device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        tgen.generate_candidates_batch(model.state_dict(), model.cfg, None, None,
-                                       dcfg=tconfig.DecodeConfig(beam_candidates=2), device="cpu")
+    dcfg = tconfig.DecodeConfig(beam_candidates=2, greedy_in_pool=True, band_max_len=True)
+    assert th.evaluate_molecules([], model, dcfg, device="cpu") == ([], th.EvalSummary())
 
 
 def test_featurize_records_roundtrip():

@@ -126,22 +126,3 @@ def test_host_engine_is_the_jax_engine():
         np.testing.assert_array_equal(tm.all_mode_errors(a, b), jm.all_mode_errors(a, b))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_auction_kernel_matches_plain_on_gpu(cuda_device):
-    """The CUDA kernel against its plain version (1e-4: float32 sums in
-    another order) and scipy at the scorer's shapes."""
-    rng = np.random.default_rng(2)
-    for n_max in (8, 32, 64):
-        cost = tm.pairwise_cost(*_peaks(rng, 80, n_max), device=cuda_device)[0]
-        out = tk2.auction_assignment_cost(cost)
-        ref = tk2.auction_assignment_cost_plain(cost)
-        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-        c = cost.cpu().numpy()
-        assert np.all(out.cpu().numpy() - _opt(c) <= cost.shape[1] * _eps_last(c) + 1e-4)

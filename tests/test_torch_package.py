@@ -14,7 +14,7 @@ import torch
 from multimodalspectraltransformer_torch.decode import samplers
 from multimodalspectraltransformer_torch.eval import harness
 from multimodalspectraltransformer_torch.models import mmt
-from multimodalspectraltransformer_torch.ops import auction, decode_attention
+from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
 from multimodalspectraltransformer_torch.rank import matching
 from multimodalspectraltransformer_torch.sim import factory
 from multimodalspectraltransformer_torch.utils.config import ModelConfig
@@ -35,7 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "multimodalspectraltransformer_torch." + m
     for m in ("models.convert", "models.mmt", "ops.decode_attention", "ops.auction",
-              "decode.samplers", "eval.generation", "eval.harness", "rank.matching",
+              "ops.beam_attention", "decode", "decode.functional", "decode.samplers",
+              "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching",
               "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom")
 ]
 
@@ -99,6 +100,11 @@ ENTRY_POINTS = {
     "multinomial_decode": lambda: samplers.multinomial_decode(
         {}, ModelConfig(), torch.zeros(1, 2, 128), torch.zeros(1, 2, dtype=torch.bool),
         torch.Generator()),
+    "beam_search": lambda: samplers.beam_search(
+        {}, ModelConfig(), torch.zeros(1, 2, 128), torch.zeros(1, 2, dtype=torch.bool)),
+    "beam_search_materialized": lambda: samplers.beam_search_materialized(
+        {}, ModelConfig(), torch.zeros(1, 2, 128), torch.zeros(1, 2, dtype=torch.bool)),
+    "dummy_batch": lambda: mmt.dummy_batch(ModelConfig(), 2),
     "evaluate_molecules": lambda: harness.evaluate_molecules(
         [], mmt.MultimodalTransformer(ModelConfig.small())),
     "batched_pairwise_assignment_error": lambda: matching.batched_pairwise_assignment_error(
@@ -127,6 +133,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     on another device type they raise instead of falling back."""
     decode_attention.reset_launches()
     auction.reset_launches()
+    beam_attention.reset_launches()
     q = torch.randn(2, 4, 8)
     kv = torch.randn(2, 4, 16, 6)
     out = decode_attention.decode_attention(q, kv, 3)
@@ -134,11 +141,25 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     cost = torch.rand(3, 8, 8)
     torch.testing.assert_close(auction.auction_assignment_cost(cost),
                                auction.auction_assignment_cost_plain(cost))
-    assert decode_attention.launches == 0 and auction.launches == 0
+    qb, kvb, bias = _beam_inputs()
+    torch.testing.assert_close(beam_attention.beam_attention(qb, kvb, bias, 6),
+                               beam_attention.beam_attention_plain(qb, kvb, bias, 6))
+    assert decode_attention.launches == 0 and auction.launches == 0 and beam_attention.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention.decode_attention(q.to("meta"), kv.to("meta"), 3)
     with pytest.raises(ValueError, match="unsupported device"):
         auction.auction_assignment_cost(cost.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        beam_attention.beam_attention(qb.to("meta"), kvb.to("meta"), bias.to("meta"), 6)
+
+
+def _beam_inputs():
+    """q [2, 4, 3, 8], kv [2, 4, 16, 9] (T = 3 steps of K = 3 lanes), and a
+    bias keeping each beam's own lane at every step."""
+    bias = torch.full((2, 3, 9), float("-inf"))
+    for k in range(3):
+        bias[:, k, k::3] = 0.0
+    return torch.randn(2, 4, 3, 8), torch.randn(2, 4, 16, 9), bias
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "pos"])
@@ -161,3 +182,19 @@ def test_auction_checks_its_inputs(bad):
     cost = torch.rand(2, 8, 6) if bad == "shape" else torch.rand(2, 8, 8).double()
     with pytest.raises((ValueError, TypeError)):
         auction.auction_assignment_cost(cost)
+
+
+@pytest.mark.parametrize("bad", ["shape", "bias_shape", "dtype", "n_live"])
+def test_beam_attention_checks_its_inputs(bad):
+    q, kv, bias = _beam_inputs()
+    n_live = 6
+    if bad == "shape":
+        kv = torch.randn(2, 4, 8, 9)
+    elif bad == "bias_shape":
+        bias = bias[:, :2]
+    elif bad == "dtype":
+        bias = bias.to(torch.bfloat16)
+    else:
+        n_live = 10
+    with pytest.raises((ValueError, TypeError)):
+        beam_attention.beam_attention(q, kv, bias, n_live)
