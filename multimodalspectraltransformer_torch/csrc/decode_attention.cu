@@ -21,7 +21,8 @@
 //   - f32 math for fp32 and bf16 storage alike; bf16 rounds once, at the
 //     output (as the Pallas kernel does).
 // A first, simple version: no shared memory, no tensor cores (Dh = 8 is far
-// below an MMA tile and the work is memory bound anyway).
+// below an MMA tile and the work is memory bound anyway). Head sizes 8, 16,
+// 32 and 64 are instantiated (ModelConfig's hidden_size / num_heads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,8 +97,17 @@ cudaError_t launch(const void* q, const void* kv, void* out, int BH, int T_len, 
   const T* qp = static_cast<const T*>(q);
   const T* kvp = static_cast<const T*>(kv);
   T* op = static_cast<T*>(out);
-  if (Dh != 8) return cudaErrorInvalidValue;  // the model's head size (d_model 128 / 16 heads)
-  decode_attention_kernel<T, 8><<<grid, block, 0, stream>>>(qp, kvp, op, BH, T_len, pos);
+  switch (Dh) {  // 8: the model's head size (d_model 128 / 16 heads)
+    case 8: decode_attention_kernel<T, 8><<<grid, block, 0, stream>>>(qp, kvp, op, BH, T_len, pos);
+      break;
+    case 16: decode_attention_kernel<T, 16><<<grid, block, 0, stream>>>(qp, kvp, op, BH, T_len, pos);
+      break;
+    case 32: decode_attention_kernel<T, 32><<<grid, block, 0, stream>>>(qp, kvp, op, BH, T_len, pos);
+      break;
+    case 64: decode_attention_kernel<T, 64><<<grid, block, 0, stream>>>(qp, kvp, op, BH, T_len, pos);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

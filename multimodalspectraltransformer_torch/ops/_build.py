@@ -39,10 +39,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, kv, out, B, H, T, Dh, pos, is_bf16, stream
     "mmt_decode_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # cost, total, B, N, n_phases, iters_per_phase, eps_final, scale_factor, stream
-    "mmt_auction": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # q, kv, bias, out, B, H, K, M, Dh, n_live, is_bf16, stream
-    "mmt_beam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cost, total, rounds (or null), B, N, n_phases, iters_per_phase, eps_final,
+    # scale_factor, variant, stream
+    "mmt_auction": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # q, kv, bias, out, B, H, K, M, Dh, n_live, group, is_bf16, stream
+    "mmt_beam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

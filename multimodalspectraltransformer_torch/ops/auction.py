@@ -20,7 +20,14 @@ anyway. ``iters_per_phase=8 * N`` reproduces the Pallas kernel exactly.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/auction.cu``) or raises; on a CPU tensor it runs
-``auction_assignment_cost_plain``, the same algorithm in plain PyTorch.
+``auction_assignment_cost_plain``, the same algorithm in plain PyTorch. The
+kernel takes any N up to ``MAX_N`` (11,596, where its bookkeeping fills a
+block's shared memory; the Pallas kernel needs the N x N cost in VMEM, which
+stops it far below that), in one of three variants that
+``auction_variant(N)`` picks: a warp per problem for N <= 32, else a block
+per problem with the cost in shared memory while it fits (N <= 238) and in
+device memory above that. Each gives the plain version's assignment and its
+rounds per problem (``return_iters``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import torch
 from . import _build
 
 NEG = -3.0e38  # "no bid" sentinel, finite so max/argmax stay well defined
-MAX_N = 224  # the kernel keeps the N x N cost in shared memory
+# a block's shared memory on the H100 (227 KB), less the block kernel's 512 static bytes
+SMEM_BYTES = 232448 - 512
+MAX_N = SMEM_BYTES // 20  # the block variants keep 20 bytes of bookkeeping per row there
 ROUNDS_PER_N = 64  # default round cap per phase, in units of N (Pallas: 8)
 
 launches = 0  # kernel launches since the last reset (plain-version calls do not count)
@@ -84,8 +93,22 @@ def auction_assignment_cost_plain(
             owner = torch.where(has_bid, win_bidder, owner)
         eps_cur = eps / scale_t
     owner = torch.where(owner >= 0, owner, idx[None, :])
-    total = cost.gather(1, owner[:, None, :])[:, 0, :].sum(dim=1)  # sum_j cost[owner_j, j]
+    # sum_j cost[owner_j, j], summed in float64 as the kernel does, so the
+    # total does not depend on the order of the sum
+    total = cost.gather(1, owner[:, None, :])[:, 0, :].double().sum(dim=1).float()
     return (total, rounds) if return_iters else total
+
+
+def auction_variant(n: int) -> int:
+    """The kernel variant for problems of size ``n``: 0 = one warp per problem
+    (n <= 32), 1 = one block per problem with the cost in shared memory,
+    2 = one block per problem with the cost in device memory (L2-resident).
+    Raises above ``MAX_N``."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"auction: N={n} outside 1..{MAX_N}")
+    if n <= 32:
+        return 0
+    return 1 if 20 * n + 4 * n * n <= SMEM_BYTES else 2
 
 
 def auction_assignment_cost(
@@ -94,8 +117,10 @@ def auction_assignment_cost(
     iters_per_phase: int = 0,
     eps_final: float = 1e-5,
     scale_factor: float = 6.0,
-) -> torch.Tensor:
-    """[B] float32 totals; kernel on CUDA, plain version on the CPU."""
+    return_iters: bool = False,
+):
+    """[B] float32 totals (and with ``return_iters`` the int64 [B] rounds each
+    problem ran); kernel on CUDA, plain version on the CPU."""
     global launches
     if cost.dim() != 3 or cost.shape[1] != cost.shape[2]:
         raise ValueError(f"auction: cost must be [B, N, N], got {tuple(cost.shape)}")
@@ -103,24 +128,23 @@ def auction_assignment_cost(
         raise TypeError(f"auction: cost must be float32, got {cost.dtype}")
     if cost.device.type == "cpu":
         return auction_assignment_cost_plain(cost, n_phases, iters_per_phase, eps_final,
-                                             scale_factor)
+                                             scale_factor, return_iters)
     if cost.device.type != "cuda":
         raise ValueError(f"auction: unsupported device {cost.device}")
     if not cost.is_contiguous():
         raise ValueError("auction: cost must be contiguous")
     B, N, _ = cost.shape
-    if not (1 <= N <= MAX_N):
-        raise ValueError(f"auction: N={N} outside 1..{MAX_N}")
+    variant = auction_variant(N)
     total = torch.empty(B, dtype=torch.float32, device=cost.device)
-    if B == 0:
-        return total
-    lib = _build.lib()
-    err = lib.mmt_auction(cost.data_ptr(), total.data_ptr(), B, N, n_phases,
-                          iters_per_phase or ROUNDS_PER_N * N, eps_final, scale_factor,
-                          _build.stream_ptr(cost.device))
-    _build.check(err, "mmt_auction")
-    launches += 1
-    return total
+    rounds = torch.empty(B, dtype=torch.int32, device=cost.device) if return_iters else None
+    if B > 0:
+        err = _build.lib().mmt_auction(
+            cost.data_ptr(), total.data_ptr(), None if rounds is None else rounds.data_ptr(), B, N,
+            n_phases, iters_per_phase or ROUNDS_PER_N * N, eps_final, scale_factor, variant,
+            _build.stream_ptr(cost.device))
+        _build.check(err, "mmt_auction")
+        launches += 1
+    return (total, rounds.long()) if return_iters else total
 
 
 def reset_launches() -> None:

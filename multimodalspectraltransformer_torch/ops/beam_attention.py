@@ -13,7 +13,10 @@ and replaces the JAX package's Pallas kernel ``ops/beam_attention.py``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/beam_attention.cu``) or raises; on a CPU tensor it runs
-``beam_attention_plain``, the same function in plain PyTorch.
+``beam_attention_plain``, the same function in plain PyTorch. The kernel
+takes head sizes 8, 16, 32 and 64 (``HEAD_SIZES``) and any number of beams:
+it runs them in groups of at most ``MAX_GROUP`` (``beam_groups``), each group
+reading the cache again.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from . import _build
 
-MAX_BEAMS = 16  # the kernel keeps one online softmax per beam in registers
+MAX_GROUP = 16  # beams one block of the kernel serves, one warp each
+HEAD_SIZES = (8, 16, 32, 64)  # the head sizes the kernel is instantiated for
 
 launches = 0  # kernel launches since the last reset (plain-version calls do not count)
 
@@ -62,6 +66,14 @@ def _check(q: torch.Tensor, kv: torch.Tensor, bias: torch.Tensor, n_live: int) -
         raise ValueError(f"beam_attention: n_live {n_live} outside the cache of {M} columns")
 
 
+def beam_groups(k: int) -> tuple[int, int]:
+    """(groups, beams per group) the kernel splits ``k`` beams into: the
+    fewest groups of at most ``MAX_GROUP``, as even as they can be (the last
+    may be smaller)."""
+    n = -(-k // MAX_GROUP)
+    return n, -(-k // n)
+
+
 def beam_attention(q: torch.Tensor, kv: torch.Tensor, bias: torch.Tensor,
                    n_live: Optional[int] = None) -> torch.Tensor:
     """[B, H, K, Dh] attention output; kernel on CUDA, plain version on the CPU."""
@@ -75,13 +87,13 @@ def beam_attention(q: torch.Tensor, kv: torch.Tensor, bias: torch.Tensor,
     if not (q.is_contiguous() and kv.is_contiguous() and bias.is_contiguous()):
         raise ValueError("beam_attention: q, kv and bias must be contiguous")
     B, H, K, Dh = q.shape
-    if Dh != 8 or K > MAX_BEAMS:
-        raise ValueError(f"beam_attention: the kernel is built for head size 8 and at most "
-                         f"{MAX_BEAMS} beams, got head size {Dh} and {K} beams")
+    if Dh not in HEAD_SIZES:
+        raise ValueError(f"beam_attention: the kernel is built for head sizes {HEAD_SIZES}, "
+                         f"got {Dh}")
     out = torch.empty_like(q)
     err = _build.lib().mmt_beam_attention(
         q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, K, kv.shape[3], Dh,
-        n_live, int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        n_live, beam_groups(K)[1], int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "mmt_beam_attention")
     launches += 1

@@ -9,7 +9,9 @@ and replaces the JAX package's Pallas kernel ``ops/decode_attention.py``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/decode_attention.cu``) or raises; on a CPU tensor it runs
-``decode_attention_plain``, the same function in plain PyTorch.
+``decode_attention_plain``, the same function in plain PyTorch. The kernel
+takes head sizes 8, 16, 32 and 64 (``HEAD_SIZES``), any batch, heads and
+cache length.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+HEAD_SIZES = (8, 16, 32, 64)  # the head sizes the kernel is instantiated for
 
 launches = 0  # kernel launches since the last reset (plain-version calls do not count)
 
@@ -60,8 +64,9 @@ def decode_attention(q: torch.Tensor, kv: torch.Tensor, pos: int) -> torch.Tenso
     if not (q.is_contiguous() and kv.is_contiguous()):
         raise ValueError("decode_attention: q and kv must be contiguous")
     B, H, Dh = q.shape
-    if Dh != 8:
-        raise ValueError(f"decode_attention: the kernel is built for head size 8, got {Dh}")
+    if Dh not in HEAD_SIZES:
+        raise ValueError(f"decode_attention: the kernel is built for head sizes {HEAD_SIZES}, "
+                         f"got {Dh}")
     out = torch.empty_like(q)
     lib = _build.lib()
     err = lib.mmt_decode_attention(

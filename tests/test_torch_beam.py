@@ -116,6 +116,29 @@ def test_beam_attention_plain_matches_pallas_and_xla(pos, dtype):
         np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **tol)
 
 
+@pytest.mark.parametrize("pos", [0, 7])
+def test_beam_attention_plain_matches_pallas_at_head_size_16_and_20_beams(pos):
+    """The shapes the kernel now takes beyond beam mode's: head size 16 and
+    K = 20 beams (two groups on the card), plain K3 against the Pallas kernel
+    in interpret mode, 1e-5 at float32."""
+    q, kv, bias = _k3_inputs(pos, B=2, H=2, K=20, Dh=16, T=8)
+    q, Dh = q.astype(np.float32), q.shape[-1]
+    pallas = jk3.beam_attention(jnp.asarray(q), jnp.asarray(kv[:, :, :Dh]),
+                                jnp.asarray(kv[:, :, Dh:]), jnp.asarray(bias), interpret=True)
+    out = tk3.beam_attention(_t(q), _t(kv), _t(bias), n_live=(pos + 1) * 20)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k, groups", [(1, (1, 1)), (5, (1, 5)), (16, (1, 16)), (17, (2, 9)),
+                                       (20, (2, 10)), (33, (3, 11)), (40, (3, 14))])
+def test_beam_groups_split_beams_evenly(k, groups):
+    """The kernel's beam groups: the fewest groups of at most 16 beams, as even
+    as they can be; together they cover every beam once."""
+    n, size = tk3.beam_groups(k)
+    assert (n, size) == groups
+    assert size <= tk3.MAX_GROUP and (n - 1) * size < k <= n * size
+
+
 @pytest.mark.parametrize("pos", [0, 5, 11])
 def test_beam_attention_live_columns_are_the_whole_function(pos):
     """Reading only the first (pos+1)*K columns gives the full-width result:

@@ -88,6 +88,21 @@ def test_decode_attention_plain_matches_pallas(pos, dtype):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_pallas_at_head_size_16(dtype):
+    """Head size 16 (ModelConfig(num_heads=8)), which the kernel now takes:
+    plain K1 against the Pallas kernel in interpret mode, same tolerances."""
+    rng = np.random.default_rng(16)
+    q = rng.standard_normal((4, 8, 16)).astype(np.float32) / 4.0
+    kv = rng.standard_normal((4, 8, 32, 12)).astype(np.float32)
+    ref = jk1.decode_attention(jnp.asarray(q, dtype), jnp.asarray(kv, dtype), 9, interpret=True)
+    tdt = getattr(torch, dtype)
+    out = tk1.decode_attention(_t(q).to(tdt), _t(kv).to(tdt), 9)
+    assert out.dtype == tdt and out.shape == (4, 8, 16)
+    tol = 1e-5 if dtype == "float32" else 2.0**-7
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------- step + samplers
 
 @pytest.mark.parametrize("group", [1, 3])

@@ -19,6 +19,7 @@ import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
+import kernel_timing as kt
 from multimodalspectraltransformer_torch.ops import auction as tk2
 from multimodalspectraltransformer_torch.rank import matching as tm
 from multimodalspectraltransformer_tpu.ops import auction as jk2
@@ -54,7 +55,10 @@ def _peaks(rng, n_pairs: int, n_max: int):
 
 
 @pytest.mark.parametrize("case", ["uniform16", "ties", "zero_block", "harness8"])
-def test_auction_plain_is_the_pallas_function(case):
+def test_auction_plain_is_the_pallas_function(case, record_property):
+    """The plain version's totals against the Pallas kernel in interpret
+    mode, at the Pallas round cap; the largest difference is recorded as the
+    ``max_abs_diff_vs_pallas`` property of the JUnit report."""
     rng = np.random.default_rng(1)
     if case == "uniform16":
         costs = rng.random((6, 16, 16)).astype(np.float32)
@@ -70,6 +74,7 @@ def test_auction_plain_is_the_pallas_function(case):
     N = costs.shape[1]
     ref = np.asarray(jk2.auction_assignment_cost_pallas(costs, interpret=True))
     ours = tk2.auction_assignment_cost(torch.from_numpy(costs), iters_per_phase=8 * N).numpy()
+    record_property("max_abs_diff_vs_pallas", float(np.abs(ours - ref).max()))
     np.testing.assert_allclose(ours, ref, atol=1e-5)
     np.testing.assert_allclose(ours, _opt(costs), atol=N * 1e-4)
 
@@ -87,6 +92,51 @@ def test_auction_default_cap_converges_where_pallas_stops_early():
     assert np.sum(capped - opt > tol) >= 1  # the Pallas schedule's miss
     ours = tk2.auction_assignment_cost(cost).numpy()
     assert np.all(ours - opt <= tol) and np.all(ours - opt >= -1e-4)
+
+
+def test_auction_plain_solves_sizes_above_the_old_kernel_limit():
+    """N = 240 (the card runs it from device memory, past the 224 the kernel
+    once refused): the plain version within N * eps_last of scipy's optimum,
+    on uniform costs with tied rows and columns."""
+    rng = np.random.default_rng(240)
+    costs = rng.random((1, 240, 240)).astype(np.float32)
+    costs[:, 2] = costs[:, 1]
+    costs[:, :, 5] = costs[:, :, 4]
+    ours, rounds = tk2.auction_assignment_cost_plain(torch.from_numpy(costs), return_iters=True)
+    gap = ours.numpy() - _opt(costs)
+    assert np.all(gap <= 240 * _eps_last(costs) + 1e-4) and np.all(gap >= -1e-4)
+    assert int(rounds[0]) > 0
+
+
+@pytest.mark.parametrize("n, variant", [(1, 0), (8, 0), (32, 0), (33, 1), (64, 1), (224, 1),
+                                        (238, 1), (239, 2), (300, 2), (tk2.MAX_N, 2)])
+def test_auction_variant_by_size(n, variant):
+    """The kernel variant the wrapper picks: a warp per problem up to 32, a
+    block with the cost in shared memory while 20N + 4N^2 bytes fit in 227 KB
+    (N <= 238), a block reading the cost from device memory above that."""
+    assert tk2.auction_variant(n) == variant
+
+
+def test_auction_timed_shapes_cover_both_block_variants():
+    """The K2 shapes that chip_smoke.py and scripts/torch_kernel_times.py
+    time (kernel_timing.K2_TIMED) lie on each side of N = 238, so both block
+    variants keep a timed shape."""
+    assert {tk2.auction_variant(n) for _, _, n in kt.K2_TIMED} == {1, 2}
+
+
+@pytest.mark.parametrize("n", [0, tk2.MAX_N + 1])
+def test_auction_variant_refuses_sizes_no_variant_takes(n):
+    with pytest.raises(ValueError):
+        tk2.auction_variant(n)
+
+
+def test_auction_wrapper_returns_rounds_on_cpu():
+    """``return_iters`` through the wrapper gives the plain version's rounds."""
+    cost = torch.from_numpy(np.random.default_rng(3).random((4, 12, 12)).astype(np.float32))
+    total, rounds = tk2.auction_assignment_cost(cost, return_iters=True)
+    ref, ref_rounds = tk2.auction_assignment_cost_plain(cost, return_iters=True)
+    assert torch.equal(total, ref) and torch.equal(rounds, ref_rounds)
+    assert rounds.dtype == torch.int64 and bool((rounds > 0).all())
 
 
 @pytest.mark.parametrize("n_max", [8, 24])

@@ -73,14 +73,16 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 def test_port_sources_never_name_jax_imports():
-    """No source file of the port or chip_smoke.py has an import of JAX,
-    flax, msgpack or the JAX package (the runtime test above covers the
-    modules it imports; this covers every file)."""
+    """No source file of the port, chip_smoke.py or the kernel_timing.py it
+    shares with scripts/torch_kernel_times.py has an import of JAX, flax,
+    msgpack or the JAX package (the runtime test above covers the modules it
+    imports; this covers every file)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|ninja|"
                      r"multimodalspectraltransformer_tpu)\b", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_timing.py",
+                                             os.path.join("scripts", "torch_kernel_times.py"))]
     for root, _dirs, names in os.walk(os.path.join(REPO, "multimodalspectraltransformer_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
