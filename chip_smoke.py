@@ -10,13 +10,18 @@ Phases, one line of output each (or a few):
 2. kernels - K1 (decode attention), K2 (auction) and K3 (beam attention) on
              the card at their paths' shapes, each held against its plain
              PyTorch version (K2 also against scipy), with times;
-3. main    - ``evaluate_molecules`` at the full width of ``ModelConfig()`` with
-             the committed phase3 weights on 8 simulated molecules, CLIP off,
-             fan-out 128, bf16 decoding; the kernels' launch counters are set
-             to 0 just before the run and read just after;
-4. check   - the run's outputs: every scored pair against scipy's optimum,
-             and the greedy decode on the card (K1) against the CPU's plain
-             path at float32, token for token;
+3. main    - ``evaluate_molecules`` as bench.py's e2e mode runs it: the full
+             width of ``ModelConfig()`` with the committed phase3 weights on 8
+             simulated molecules, fan-out 128, bf16 decoding, CLIP scoring
+             with the committed clip_r4 tower (``clip_block`` 10); the
+             kernels' launch counters are set to 0 just before the run and
+             read just after; the CLIP stage's seconds, tokens, FLOPs and
+             share of the card's float32 peak;
+4. check   - the run's outputs: finite CLIP scores on every candidate, every
+             scored pair against scipy's optimum, the greedy decode on the
+             card (K1) against the CPU's plain path at float32, token for
+             token, and ``score_candidates_batch`` on the card against the CPU
+             on the run's candidates, in float32 and bfloat16;
 5. beam    - (a) beam mode (bench.py's ``BENCH_MODE=beam``): 128 molecules
              with seeded uniform spectra, beam 5, 128 steps without early
              exit, bf16, one warm-up and two timed calls with the counters
@@ -66,6 +71,7 @@ K2_REPLACES = "multimodalspectraltransformer_tpu/ops/auction.py:30"
 K3_SOURCE = "multimodalspectraltransformer_torch/csrc/beam_attention.cu"
 K3_REPLACES = "multimodalspectraltransformer_tpu/ops/beam_attention.py:34"
 PHASE3 = "weights/mmt_r4_phase3.msgpack.gz"
+CLIP_R4 = "weights/clip_r4.msgpack.gz"
 
 
 def log(msg: str) -> None:
@@ -347,7 +353,7 @@ def main_path(dev, n_mols: int = 8, fanout: int = 128):
     from multimodalspectraltransformer_torch.models import mmt
     from multimodalspectraltransformer_torch.ops import auction as k2
     from multimodalspectraltransformer_torch.ops import decode_attention as k1
-    from multimodalspectraltransformer_torch.rank import matching
+    from multimodalspectraltransformer_torch.rank import clip, matching
     from multimodalspectraltransformer_torch.sim import factory
     from multimodalspectraltransformer_torch.utils.config import DecodeConfig, ModelConfig
 
@@ -355,20 +361,22 @@ def main_path(dev, n_mols: int = 8, fanout: int = 128):
     t0 = time.perf_counter()
     records = factory.simulate_records(molrandom.random_corpus(2 * n_mols, seed=123)[:n_mols], device=dev)
     model = mmt.load_model(PHASE3, cfg, device=dev)
+    clip_bundle = clip.load_bundle(CLIP_R4, device=dev)
     torch.cuda.synchronize()
-    log(f"[main] set-up: {len(records)} records simulated, phase3 loaded in "
+    log(f"[main] set-up: {len(records)} records simulated, phase3 and clip_r4 loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     dcfg = DecodeConfig(max_len=64, fanout=fanout, multinom_runs=10, max_temp_rounds=5,
                         compute_dtype="bfloat16")
+    run = dict(clip_bundle=clip_bundle, clip_block=dcfg.multinom_runs, device=dev)
 
     t0 = time.perf_counter()
-    harness.evaluate_molecules(records, model, dcfg, seed=1, device=dev)  # warm-up
+    harness.evaluate_molecules(records, model, dcfg, seed=1, **run)  # warm-up
     log(f"[main] warm-up run: {time.perf_counter() - t0:.2f} s")
 
     k1.reset_launches()
     k2.reset_launches()
     t0 = time.perf_counter()
-    results, summary = harness.evaluate_molecules(records, model, dcfg, seed=0, device=dev)
+    results, summary = harness.evaluate_molecules(records, model, dcfg, seed=0, **run)
     wall = time.perf_counter() - t0
     launches = {"K1": k1.launches, "K2": k2.launches}
     stages = " ".join(f"{k}={v:.3f}" for k, v in summary.stage_seconds.items())
@@ -387,6 +395,7 @@ def main_path(dev, n_mols: int = 8, fanout: int = 128):
     n_cands = sum(len(r.candidates) for r in results)
     if n_cands == 0 or summary.mns_exact <= 0.0:
         raise AssertionError(f"no useful candidates: {n_cands} candidates, mns_exact {summary.mns_exact}")
+    clip_stage(clip_bundle[1], results, summary, dcfg.multinom_runs)
     sims = {sr.smiles: sr for sr in factory.simulate_records(
         [c.smiles for r in results for c in r.candidates], device=dev)}
     rec_by_target = {r.smiles: r for r in records}
@@ -423,7 +432,91 @@ def main_path(dev, n_mols: int = 8, fanout: int = 128):
         f"{'identical' if same else 'DIFFER'}")
     if not same:
         raise AssertionError("greedy decode on the card differs from the CPU's plain path")
+    check_clip(clip_bundle, results, enc.fingerprint)
     return launches, cost, (records, model, dcfg, results)
+
+
+def clip_tokens_flops(ccfg, n_blocks: int, width: int) -> tuple[int, float]:
+    """Tokens the CLIP tower runs (every position of every padded block) and
+    their operations: per token 2 * L * (4 d^2 + 2 d ffn) for the projections
+    and the feed-forward, plus 4 * L * T * d for the attention's two products;
+    the pooler and heads, once per candidate, are left out (under 0.1%)."""
+    L, d, T = ccfg.text_layers, ccfg.text_hidden, ccfg.text_max_len
+    tokens = n_blocks * width * T
+    per_token = 2 * L * (4 * d * d + 2 * d * ccfg.text_ffn) + 4 * L * T * d
+    return tokens, float(tokens) * per_token
+
+
+def clip_stage(ccfg, results, summary, clip_block: int) -> None:
+    """Every candidate has finite CLIP scores; log the stage's seconds,
+    tokens, FLOPs and their share of the card's float32 peak."""
+    from multimodalspectraltransformer_torch.eval import harness
+
+    sizes = [len(r.candidates) for r in results if r.candidates]
+    bad = [c.smiles for r in results for c in r.candidates
+           if not (np.isfinite(c.clip_loss) and np.isfinite(c.clip_dot))]
+    if bad or not sizes:
+        raise AssertionError(f"CLIP: {len(bad)} of {sum(sizes)} candidates without finite scores")
+    width = harness.clip_block_width(max(sizes), clip_block)
+    tokens, flops = clip_tokens_flops(ccfg, len(sizes), width)
+    secs = summary.stage_seconds["clip"]
+    log(f"[main] CLIP stage: {secs:.4f} s for {len(sizes)} blocks of {width} candidates, "
+        f"{tokens} tokens, {flops / 1e12:.4f} TFLOP, {flops / secs / 1e12:.2f} TFLOP/s = "
+        f"{flops / secs / F32_FLOPS:.1%} of the float32 peak; {sum(sizes)} candidates, all "
+        f"with finite clip_loss and clip_dot")
+
+
+def check_clip(clip_bundle, results, fingerprints) -> None:
+    """``score_candidates_batch`` on the card against the port on the CPU, on
+    the main path's first three molecules' candidates (10 each, the last
+    repeated) and their fingerprints, in float32 (1e-4 * max(1, |x|): float32
+    products summed in another order) and bfloat16 (2^-7 * max|cb| * max|mt|:
+    a rounding to bfloat16 that flips moves a logit by up to 2^-8 of the
+    embeddings' norm product, tests/test_torch_clip.py)."""
+    import copy
+
+    import torch
+
+    from multimodalspectraltransformer_torch.rank import clip
+    from multimodalspectraltransformer_torch.train.contrastive import clip_tokenize
+
+    model, ccfg = clip_bundle
+    picked = [i for i, r in enumerate(results) if r.candidates][:3]
+    if len(picked) < 2:
+        raise AssertionError("CLIP check: fewer than 2 molecules with candidates")
+    smis = []
+    for i in picked:
+        c = [x.smiles for x in results[i].candidates][:10]
+        smis += c + [c[-1]] * (10 - len(c))
+    toks, mask = clip_tokenize(smis, ccfg.text_max_len)
+    shape = (len(picked), 10, ccfg.text_max_len)
+    toks = torch.from_numpy(toks).reshape(shape)
+    mask = torch.from_numpy(mask).reshape(shape)
+    fps = fingerprints[picked].float().cpu()
+    dev = next(model.parameters()).device
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        cb = cpu_model.embed_text(toks.reshape(-1, shape[-1]), mask.reshape(-1, shape[-1]))
+        mt = cpu_model.embed_spectrum(fps)
+    norm_product = float(cb.norm(dim=-1).max() * mt.norm(dim=-1).max())
+    for dtype in (None, "bfloat16"):
+        card = clip.score_candidates_batch(model, ccfg, toks.to(dev), mask.to(dev), fps.to(dev),
+                                           compute_dtype=dtype)
+        host = clip.score_candidates_batch(cpu_model, ccfg, toks, mask, fps, compute_dtype=dtype)
+        worst, ok = 0.0, True
+        for a, b in zip(card, host):
+            a, b = a.cpu().double(), b.double()
+            diff = (a - b).abs()
+            bound = (1e-4 * b.abs().clamp_min(1.0) if dtype is None
+                     else torch.full_like(b, 2.0**-7 * max(1.0, norm_product)))
+            worst = max(worst, diff.max().item())
+            ok = ok and bool((diff <= bound).all()) and bool(torch.isfinite(a).all())
+        tol = "1e-4 relative" if dtype is None else f"{2.0**-7 * norm_product:.3f}"
+        log(f"[check] CLIP score_candidates_batch {dtype or 'float32'}, {len(picked)} molecules x "
+            f"10 candidates, card vs CPU: max_abs_err={worst:.3e} (tol {tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"CLIP scores on the card differ from the CPU ({dtype})")
 
 
 # ---------------------------------------------------------------------------

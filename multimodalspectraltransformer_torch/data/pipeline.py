@@ -1,8 +1,10 @@
-"""Host-side featurization: spectra records -> fixed-shape model inputs.
+"""Host-side data: spectra CSVs -> records -> fixed-shape model inputs.
 
 The inference subset of the JAX package's ``data/pipeline.py``, carried as
-the port's own copy (numpy, no device code): ``SampleRecord``, ``bin_ir``,
-``_pad_points``, ``featurize`` and ``collate``. Same normalizations: 1H
+the port's own copy (numpy, no device code): ``SampleRecord``,
+``load_spectra_csvs`` (read with the standard library's ``csv``, where the
+JAX package uses pandas), ``bin_ir``, ``_pad_points``, ``featurize`` and
+``collate``. Same normalizations: 1H
 ppm/10 (intensity untouched), 13C ppm/200, HSQC (H/10, C/200), COSY (H/10,
 H/10); zero-pad to ``spectrum_points`` with inverted masks (1 = padding);
 IR mean-binned to ``ir_bins`` and max-normalized; SMILES canonicalized and
@@ -11,6 +13,9 @@ tokenized with <SOS>/<EOS> framing; 512-bit Morgan fingerprint target.
 
 from __future__ import annotations
 
+import ast
+import csv
+import os
 import random
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
@@ -32,6 +37,67 @@ class SampleRecord:
     cosy: Optional[list] = None  # [[H, H], ...]
     ir: Optional[np.ndarray] = None  # raw spectrum (any length)
 
+
+def _parse_shifts(value):
+    if isinstance(value, str):
+        return ast.literal_eval(value)
+    return value
+
+
+def _read_rows(path: str) -> list[dict]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def load_spectra_csvs(
+    csv_1h: str = "",
+    csv_13c: str = "",
+    csv_hsqc: str = "",
+    csv_cosy: str = "",
+    ir_folder: str = "",
+    limit: int = 0,
+) -> list[SampleRecord]:
+    """Reference-format CSVs (columns ``sample-id``, ``SMILES``, ``shifts``
+    holding a Python list literal; IR as ``<ir_folder>/<sample-id>.csv``
+    with a ``spectra`` column) -> one record per sample id, in the order ids
+    first appear (1H, 13C, HSQC, COSY), the first ``limit`` if set. A shifts
+    cell that does not parse gives ``None`` for that modality."""
+    tables = {}
+    for key, path in (("1H", csv_1h), ("13C", csv_13c), ("HSQC", csv_hsqc), ("COSY", csv_cosy)):
+        if path:
+            tables[key] = {r["sample-id"]: (r["SMILES"], r["shifts"]) for r in _read_rows(path)}
+
+    ids: list[str] = []
+    seen = set()
+    for t in tables.values():
+        for sid in t:
+            if sid not in seen:
+                seen.add(sid)
+                ids.append(sid)
+    if limit:
+        ids = ids[:limit]
+
+    records = []
+    for sid in ids:
+        smiles = None
+        fields: dict = {}
+        for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
+            if key in tables and sid in tables[key]:
+                smi, shifts = tables[key][sid]
+                smiles = smiles or smi
+                try:
+                    fields[attr] = _parse_shifts(shifts)
+                except (ValueError, SyntaxError):
+                    fields[attr] = None
+        ir = None
+        if ir_folder:
+            path = os.path.join(ir_folder, f"{sid}.csv")
+            if os.path.exists(path):
+                ir = np.array([float(r["spectra"]) for r in _read_rows(path)])
+        if smiles is None:
+            continue
+        records.append(SampleRecord(sid, smiles, ir=ir, **fields))
+    return records
 
 
 def bin_ir(raw: np.ndarray, bins: int) -> np.ndarray:

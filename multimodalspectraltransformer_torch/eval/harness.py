@@ -1,18 +1,19 @@
-"""The batch evaluation harness: spectral-error ranking of sampled candidates.
+"""The batch evaluation harness: candidates ranked by spectral error, scored by CLIP.
 
-Counterpart of the JAX package's ``eval/harness.py`` with CLIP scoring off
-(``clip_bundle=None``, a supported configuration there: CLIP is report-only
-and ranking uses the spectral errors). Per batch of molecules:
+Counterpart of the JAX package's ``eval/harness.py``. Per batch of molecules:
 
 encode -> teacher-forced probabilities -> greedy decode -> fan-out
 multinomial candidates (temperature escalation, round-shrink,
 validity/MW/dedup filters; optionally the beam hypotheses,
 ``DecodeConfig.beam_candidates``, and the greedy hypothesis,
-``greedy_in_pool``) -> simulated HSQC/COSY spectra of the candidates (in a
-background thread that overlaps the decoding rounds) -> batched assignment
-error (kernel K2) -> rank by the average of the HSQC and COSY error ranks ->
-top-k accuracy. ``DecodeConfig.band_max_len`` cuts the decode length to the
-batch's targets.
+``greedy_in_pool``) -> CLIP scores of every candidate against the molecule's
+fingerprint (with ``clip_bundle``; report-only, ranking uses the spectral
+errors unless the caller folds ``clip_loss`` in) -> simulated HSQC/COSY
+spectra of the candidates (in a background thread that overlaps the decoding
+rounds) -> assignment error, batched through kernel K2 (or per candidate on
+the host, ``spectral_scorer="host"``) -> rank by the average of the HSQC and
+COSY error ranks -> top-k accuracy. ``DecodeConfig.band_max_len`` cuts the
+decode length to the batch's targets.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ from ..chem import api as chem
 from ..data import pipeline as dp
 from ..decode import samplers
 from ..models.mmt import MMTBatch, MultimodalTransformer
+from ..rank import clip as clip_mod
 from ..rank import matching
 from ..sim import factory as sim_factory
+from ..train.contrastive import clip_tokenize
 from ..utils import vocab
 from ..utils.config import DecodeConfig
 from ..utils.device import DeviceLike, resolve_device
@@ -87,7 +90,8 @@ class EvalSummary:
     top_k_accuracy: dict = field(default_factory=dict)
     mols_per_sec: float = 0.0
     # host seconds per stage of the last run (encode, teacher_forced, greedy,
-    # sampling, simulate, score, assemble), each ending in a device sync
+    # sampling, clip when scored, simulate, score, assemble), each ending in a
+    # device sync
     stage_seconds: dict = field(default_factory=dict)
 
 
@@ -127,15 +131,24 @@ def evaluate_molecules(
     simulate_errors: bool = True,
     sim_kwargs: Optional[dict] = None,
     run_mns: bool = True,
+    clip_block: int = 0,
     extra_candidates: Optional[Sequence[Sequence[str]]] = None,
+    spectral_scorer: str = "device",
     device: DeviceLike = None,
 ) -> tuple[list[MoleculeResult], EvalSummary]:
     """Evaluate molecules end to end on ``device`` (cuda unless asked).
 
-    ``extra_candidates[i]``: external candidate SMILES for ``records[i]``,
-    merged into its sampled set before simulation and ranking."""
-    if clip_bundle is not None:
-        raise NotImplementedError("CLIP scoring is not ported yet: pass clip_bundle=None")
+    ``clip_bundle``: ``(CLIPRanker, CLIPConfig)`` as ``rank.clip.load_bundle``
+    returns it; every candidate then gets ``clip_loss`` and ``clip_dot``.
+    ``clip_block``: the least width of a molecule's CLIP block (candidates
+    padded by repeating the last one; wider pools are bucketed to
+    ``clip_block`` plus a multiple of 8). ``extra_candidates[i]``: external
+    candidate SMILES for ``records[i]``, merged into its sampled set before
+    scoring and ranking. ``spectral_scorer``: "device" (every pair of a
+    modality in one K2 call) or "host" (``matching.spectral_error`` per
+    candidate, ``hung_dist_nn``)."""
+    if spectral_scorer not in ("device", "host"):
+        raise ValueError(f"spectral_scorer must be 'device' or 'host', got {spectral_scorer!r}")
     dev = resolve_device(device)
     model = model.to(dev)
     mcfg = model.cfg
@@ -234,6 +247,12 @@ def evaluate_molecules(
                 cs.smiles.append(can)
                 cs.seq_probs.append(0.0)
 
+    clip_scores: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+    if all_cands is not None and clip_bundle is not None:
+        clip_scores = _clip_scores(clip_bundle, all_cands, enc.fingerprint, clip_block,
+                                   dcfg.compute_dtype, dev)
+        mark("clip")
+
     # one factory pass over the union of candidates not simulated yet
     sim_by_smi: dict[str, Any] = {}
     if all_cands is not None and simulate_errors:
@@ -256,9 +275,24 @@ def evaluate_molecules(
                 sim_by_smi[sr.smiles] = sr
     mark("simulate")
 
-    # all (molecule, candidate) pairs of a modality in one kernel call
+    # all (molecule, candidate) pairs of a modality in one kernel call, or
+    # one host solve per pair
     device_errors: dict[tuple[int, str], list[float]] = {}
-    if all_cands is not None and simulate_errors:
+    if all_cands is not None and simulate_errors and spectral_scorer == "host":
+        for i, rec in enumerate(kept_records):
+            if rec.hsqc is None:
+                continue
+            for smi in all_cands[i].smiles:
+                sr = sim_by_smi.get(smi)
+                if sr is None:
+                    continue
+                errs = device_errors.setdefault((i, smi), [float("nan"), float("nan")])
+                for mod_idx, mod in enumerate(("hsqc", "cosy")):
+                    if getattr(rec, mod) and getattr(sr, mod):
+                        errs[mod_idx] = matching.spectral_error(
+                            np.asarray(getattr(rec, mod), float), np.asarray(getattr(sr, mod), float),
+                            "hung_dist_nn")
+    elif all_cands is not None and simulate_errors:
         q_rows: dict[str, list] = {"hsqc": [], "cosy": []}
         c_rows: dict[str, list] = {"hsqc": [], "cosy": []}
         refs: dict[str, list] = {"hsqc": [], "cosy": []}
@@ -316,6 +350,10 @@ def evaluate_molecules(
                 cr.exact = smi == target_cans[i]
                 cand_off += 1
                 res.candidates.append(cr)
+            if i in clip_scores:
+                for c, loss, dot in zip(res.candidates, *clip_scores[i]):
+                    c.clip_loss = float(loss)
+                    c.clip_dot = float(dot)
             for c in res.candidates:
                 errs = device_errors.get((i, c.smiles))
                 if errs is not None:
@@ -329,6 +367,45 @@ def evaluate_molecules(
     summary.mols_per_sec = len(results) / total if total > 0 else 0.0
     summary.stage_seconds = stages
     return results, summary
+
+
+def clip_block_width(n_max: int, clip_block: int) -> int:
+    """The CLIP block's width for pools of at most ``n_max`` candidates: at
+    least ``clip_block``; above it, ``clip_block`` plus a multiple of 8, so
+    that pools of nearby sizes share one shape."""
+    width = max(clip_block, n_max)
+    if width > clip_block:
+        width = clip_block + (width - clip_block + 7) // 8 * 8
+    return width
+
+
+def _clip_scores(clip_bundle: tuple, all_cands: list, fingerprints: torch.Tensor, clip_block: int,
+                 compute_dtype: Optional[str], dev: torch.device
+                 ) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+    """CLIP loss and dot similarity of every candidate, each molecule's block
+    against its fingerprint, all molecules in one pass: {molecule index:
+    (losses, dots)} over its real candidates. Short blocks repeat their last
+    candidate; the padding enters the block's soft targets, as in the JAX
+    harness."""
+    clip_model, ccfg = clip_bundle
+    with_cands = [i for i, cs in enumerate(all_cands) if cs.smiles]
+    if not with_cands:
+        return {}
+    width = clip_block_width(max(len(all_cands[i].smiles) for i in with_cands), clip_block)
+    blocks, n_reals = [], []
+    for i in with_cands:
+        smis = all_cands[i].smiles
+        n_reals.append(len(smis))
+        blocks += smis + [smis[-1]] * (width - len(smis))
+    toks, mask = clip_tokenize(blocks, ccfg.text_max_len)
+    shape = (len(with_cands), width, ccfg.text_max_len)
+    score = clip_mod.score_candidates_batch(
+        clip_model.to(dev), ccfg, torch.from_numpy(toks).reshape(shape).to(dev),
+        torch.from_numpy(mask).reshape(shape).to(dev), fingerprints[with_cands],
+        compute_dtype=compute_dtype)
+    losses = score.losses.cpu().numpy()
+    dots = score.dot_similarity.cpu().numpy()
+    return {i: (losses[j, :n], dots[j, :n]) for j, (i, n) in enumerate(zip(with_cands, n_reals))}
 
 
 def banded_decode_len(trg_tokens: np.ndarray, max_len: int) -> int:

@@ -13,6 +13,10 @@ the reference torch model's keys:
   ``encoder_IR``,
 - the MF embedding keeps all 213 rows (the 213th row exists because the
   reference vocabulary can emit id 212).
+
+``from_jax_clip_params`` does the same for the CLIP ranking tower
+(``rank/clip.py``), whose bundle ``weights/clip_r4.msgpack.gz`` holds float32
+leaves under a top-level ``params`` key.
 """
 
 from __future__ import annotations
@@ -211,6 +215,29 @@ def from_jax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             _norm(sd, f"{prefix}.{k}", p[k])
     for k in ("fp1", "fc_out", "real_data_linear"):
         _linear(sd, k, tree[k])
+    return sd
+
+
+def from_jax_clip_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's ``CLIPRanker`` variables (``{"params": ...}``, as a
+    CLIP bundle and flax's ``init`` hold them) -> the float32 state dict of
+    the port's ``rank.clip.CLIPRanker``. The text tower's
+    ``token_type_embedding`` is one [hidden] vector, kept as such."""
+    tree = tree["params"]
+    sd: dict[str, torch.Tensor] = {}
+    te = tree["text_encoder"]
+    sd["text_encoder.word_embeddings.weight"] = _t(te["word_embeddings"]["embedding"])
+    sd["text_encoder.position_embeddings.weight"] = _t(te["position_embeddings"]["embedding"])
+    sd["text_encoder.token_type_embedding"] = _t(te["token_type_embedding"])
+    _norm(sd, "text_encoder.emb_norm", te["emb_norm"])
+    for name, layer in te["encoder"].items():
+        _encoder_layer(sd, f"text_encoder.encoder.layers.{int(name.removeprefix('layers_'))}", layer)
+    _linear(sd, "text_encoder.pooler", te["pooler"])
+    _linear(sd, "LL1", tree["LL1"])
+    for head in ("CB_projection", "MT_projection"):
+        _linear(sd, f"{head}.projection", tree[head]["projection"])
+        _linear(sd, f"{head}.fc", tree[head]["fc"])
+        _norm(sd, f"{head}.layer_norm", tree[head]["layer_norm"])
     return sd
 
 

@@ -70,11 +70,24 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out)
 
 
-class TransformerEncoderLayer(nn.Module):
-    """torch.nn.TransformerEncoderLayer, post-LN, ReLU feed-forward."""
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU in the JAX package's form, x/2 * erfc(-x/sqrt(2)),
+    each step in the dtype of ``x``."""
+    return 0.5 * x * torch.erfc(-x * torch.tensor(math.sqrt(0.5), dtype=x.dtype))
 
-    def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 2048, eps: float = 1e-5):
+
+ACTIVATIONS = {"relu": F.relu, "gelu": gelu_exact}
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch.nn.TransformerEncoderLayer, post-LN; ``activation`` is the
+    feed-forward's: "relu" (torch's default, the MMT) or "gelu" (the exact
+    erf form of the Roberta-style CLIP text tower)."""
+
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 2048, eps: float = 1e-5,
+                 activation: str = "relu"):
         super().__init__()
+        self.act = ACTIVATIONS[activation]
         self.self_attn = MultiheadAttention(d_model, num_heads)
         self.linear1 = nn.Linear(d_model, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, d_model)
@@ -83,15 +96,16 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x, key_padding_mask=None, attn_mask=None):
         x = self.norm1(x + self.self_attn(x, x, x, attn_mask, key_padding_mask))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        return self.norm2(x + self.linear2(self.act(self.linear1(x))))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int, ffn_dim: int = 2048,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, activation: str = "relu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, ffn_dim, eps) for _ in range(num_layers)
+            TransformerEncoderLayer(d_model, num_heads, ffn_dim, eps, activation)
+            for _ in range(num_layers)
         )
 
     def forward(self, x, key_padding_mask=None, attn_mask=None):

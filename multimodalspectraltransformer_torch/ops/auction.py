@@ -28,12 +28,16 @@ stops it far below that), in one of three variants that
 per problem with the cost in shared memory while it fits (N <= 238) and in
 device memory above that. Each gives the plain version's assignment and its
 rounds per problem (``return_iters``).
+
+``assignment_cost`` and ``batched_assignment_error_pallas`` are the entry
+points under the JAX package's ``ops/auction.py`` names.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.device import DeviceLike, resolve_device
 from . import _build
 
 NEG = -3.0e38  # "no bid" sentinel, finite so max/argmax stay well defined
@@ -150,3 +154,20 @@ def auction_assignment_cost(
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def batched_assignment_error_pallas(query, candidates, query_count: int, cand_counts,
+                                    device: DeviceLike = None):
+    """Alias of ``rank.matching.batched_assignment_error`` (one query against C
+    candidates, hung_dist_zero), under the JAX package's name."""
+    from ..rank.matching import batched_assignment_error
+
+    return batched_assignment_error(query, candidates, query_count, cand_counts, device)
+
+
+def assignment_cost(cost, device: DeviceLike = None, **kwargs) -> torch.Tensor:
+    """[B, N, N] costs (numpy or a tensor) -> [B] float32 totals on ``device``
+    (cuda unless asked otherwise), through ``auction_assignment_cost`` with
+    its keyword arguments."""
+    cost = torch.as_tensor(cost, dtype=torch.float32).to(resolve_device(device)).contiguous()
+    return auction_assignment_cost(cost, **kwargs)

@@ -5,9 +5,10 @@ The host engine (``normalize_peaks``, ``align``, ``spectral_error``,
 modes {min_sum, euc_dist (greedy NN), hung_dist (Hungarian)} x {zero-pad,
 truncate, NN-expand} over 2D peak lists normalized H/10-0.5 and C/200-0.5.
 
-The device scorer ``batched_pairwise_assignment_error`` solves every
-(query, candidate) pair's zero-padded assignment in one call of kernel K2
-(``ops/auction.py``).
+The device scorers solve zero-padded assignments in one call of kernel K2
+(``ops/auction.py``): ``batched_pairwise_assignment_error`` every (query,
+candidate) pair of the harness, ``batched_assignment_error`` one query
+against C candidates.
 """
 
 from __future__ import annotations
@@ -268,3 +269,27 @@ def batched_pairwise_assignment_error(
     cost, denom = pairwise_cost(queries, cands, device)
     total = auction_assignment_cost(cost)
     return total.cpu().numpy().astype(np.float32) / denom
+
+
+def batched_assignment_error(
+    query: np.ndarray,  # [N, 2] normalized query peaks
+    candidates: np.ndarray,  # [C, M, 2] normalized candidate peak sets, zero-padded
+    query_count: int,
+    cand_counts: np.ndarray,  # [C] true peak counts
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Average optimal-assignment error of one query against C candidate peak
+    sets in one kernel call. Both sides are zero-padded to one square size
+    and padding peaks pair up at zero cost (hung_dist_zero)."""
+    dev = resolve_device(device)
+    C, M, _ = candidates.shape
+    n = max(query_count, M)
+    q = np.zeros((n, 2), np.float32)
+    q[:query_count] = query[:query_count]
+    c = np.zeros((C, n, 2), np.float32)
+    c[:, :M] = candidates
+    qt = torch.from_numpy(q).to(dev)
+    ct = torch.from_numpy(c).to(dev)
+    cost = torch.linalg.vector_norm(qt[None, :, None, :] - ct[:, None, :, :], dim=-1).contiguous()
+    total = auction_assignment_cost(cost)
+    return total.cpu().numpy() / np.maximum(np.maximum(query_count, cand_counts), 1)

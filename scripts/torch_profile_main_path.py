@@ -9,8 +9,9 @@ Without ``--beam``, for each molecule count: records from
 ``simulate_records(random_corpus(2n, seed=123)[:n])``, the committed phase3
 weights at the full width of ``ModelConfig()``, ``DecodeConfig(max_len=64,
 fanout=128, multinom_runs=10, max_temp_rounds=5, compute_dtype="bfloat16")``,
-CLIP off (the configuration of chip_smoke.py; 48 is bench.py's molecule
-count). One warm-up run, two timed runs (host clock, each ending in a device
+CLIP scoring with the committed clip_r4 tower and ``clip_block`` 10 (the
+configuration of chip_smoke.py and of bench.py's e2e mode; 48 is bench.py's
+molecule count). One warm-up run, two timed runs (host clock, each ending in a device
 sync). The Chrome trace of the first count goes to
 ``<out>/torch_trace_<n>.json.gz``.
 
@@ -39,6 +40,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PHASE3 = "weights/mmt_r4_phase3.msgpack.gz"
+CLIP_R4 = "weights/clip_r4.msgpack.gz"
 
 
 def _union_us(intervals) -> float:
@@ -87,24 +89,27 @@ def profile_main_path(model, dev, mols: list, out: str, report: dict) -> None:
     from multimodalspectraltransformer_torch.data import molrandom
     from multimodalspectraltransformer_torch.eval import harness
     from multimodalspectraltransformer_torch.ops import auction, decode_attention
+    from multimodalspectraltransformer_torch.rank import clip
     from multimodalspectraltransformer_torch.sim import factory
     from multimodalspectraltransformer_torch.utils.config import DecodeConfig
 
     dcfg = DecodeConfig(max_len=64, fanout=128, multinom_runs=10, max_temp_rounds=5,
                         compute_dtype="bfloat16")
+    run = dict(clip_bundle=clip.load_bundle(CLIP_R4, device=dev), clip_block=dcfg.multinom_runs,
+               device=dev)
     for n in mols:
         records = factory.simulate_records(molrandom.random_corpus(2 * n, seed=123)[:n], device=dev)
-        harness.evaluate_molecules(records, model, dcfg, seed=1, device=dev)  # warm-up
+        harness.evaluate_molecules(records, model, dcfg, seed=1, **run)  # warm-up
         for rep in range(2):
             decode_attention.reset_launches()
             auction.reset_launches()
             t0 = time.perf_counter()
-            _res, summary = harness.evaluate_molecules(records, model, dcfg, seed=rep, device=dev)
+            _res, summary = harness.evaluate_molecules(records, model, dcfg, seed=rep, **run)
             _emit(report, dict(mols=len(records), rep=rep, wall_s=time.perf_counter() - t0,
                                mols_per_s=summary.mols_per_sec, top1=summary.top_k_accuracy[1],
                                top5=summary.top_k_accuracy[5], stage_s=summary.stage_seconds,
                                k1_launches=decode_attention.launches, k2_launches=auction.launches))
-        row, prof = _profile(lambda: harness.evaluate_molecules(records, model, dcfg, seed=0, device=dev))
+        row, prof = _profile(lambda: harness.evaluate_molecules(records, model, dcfg, seed=0, **run))
         _emit(report, dict(mols=len(records), **row))
         if n == mols[0]:  # one trace, gzipped: the larger ones run to tens of MB
             path = os.path.join(out, f"torch_trace_{len(records)}.json")

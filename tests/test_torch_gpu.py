@@ -21,6 +21,7 @@ from multimodalspectraltransformer_torch.decode import functional as tf
 from multimodalspectraltransformer_torch.ops import auction as tk2
 from multimodalspectraltransformer_torch.ops import beam_attention as tk3
 from multimodalspectraltransformer_torch.ops import decode_attention as tk1
+from multimodalspectraltransformer_torch.rank import clip as tclip
 from multimodalspectraltransformer_torch.rank import matching as tm
 
 
@@ -184,3 +185,42 @@ def test_graph_timer_replays_the_eager_launches(cuda_device):
     for captured in outs[1:]:
         assert torch.equal(captured, eager)
     assert kt.graph_ms(lambda *a: tk3.beam_attention(*a, 640), (q, kv, bias), 8) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_clip_scores_on_gpu_match_cpu(cuda_device, compute_dtype):
+    """``score_candidates_batch`` with the committed clip_r4 tower on the card
+    against the CPU, 2 molecules x 10 candidates, TF32 off: float32 within
+    1e-4 * max(1, |x|) (float32 products summed in another order); bfloat16
+    within 2^-7 * max|cb| * max|mt|, the bound tests/test_torch_clip.py
+    justifies (a bfloat16 rounding that flips moves a logit by up to 2^-8 of
+    the embeddings' norm product)."""
+    import os
+
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.train.contrastive import clip_tokenize
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "weights",
+                        "clip_r4.msgpack.gz")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, cfg = tclip.load_bundle(path, device=cuda_device)
+        host, _ = tclip.load_bundle(path, device="cpu")
+        toks, mask = clip_tokenize(molrandom.random_corpus(20, seed=5), cfg.text_max_len)
+        toks = torch.from_numpy(toks).reshape(2, 10, -1)
+        mask = torch.from_numpy(mask).reshape(2, 10, -1)
+        fps = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 512)).astype(np.float32))
+        ours = tclip.score_candidates_batch(model, cfg, toks.to(cuda_device), mask.to(cuda_device),
+                                            fps.to(cuda_device), compute_dtype=compute_dtype)
+        ref = tclip.score_candidates_batch(host, cfg, toks, mask, fps, compute_dtype=compute_dtype)
+        with torch.no_grad():
+            cb = host.embed_text(toks.reshape(20, -1), mask.reshape(20, -1))
+            scale = float(cb.norm(dim=-1).max() * host.embed_spectrum(fps).norm(dim=-1).max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(ours, ref):
+        a, b = a.cpu().double(), b.double()
+        bound = 1e-4 * b.abs().clamp_min(1.0) if compute_dtype is None else 2.0**-7 * scale
+        assert bool(((a - b).abs() <= bound).all()), (a - b).abs().max().item()

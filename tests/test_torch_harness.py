@@ -29,6 +29,7 @@ from multimodalspectraltransformer_torch.eval import generation as tgen
 from multimodalspectraltransformer_torch.eval import harness as th
 from multimodalspectraltransformer_torch.models import mmt as tmmt
 from multimodalspectraltransformer_torch.ops import auction, decode_attention
+from multimodalspectraltransformer_torch.rank import clip as tclip
 from multimodalspectraltransformer_torch.sim import factory as tfactory
 from multimodalspectraltransformer_torch.utils import config as tconfig
 from multimodalspectraltransformer_tpu.data import molrandom
@@ -52,6 +53,8 @@ def _one_torch_thread():
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASE3 = os.path.join(REPO, "weights", "mmt_r4_phase3.msgpack.gz")
+CLIP_R4 = os.path.join(REPO, "weights", "clip_r4.msgpack.gz")
+HELDOUT_CSV = os.path.join(REPO, "runs", "accuracy_r2b", "heldout_csv.tar.gz")
 ERR_TOL = 64 * 1e-4  # N * eps of the JAX off-TPU auction (eps 1e-4), per peak at most
 PORT_TOL = 1.5e-3  # N * eps of the port's auction (N <= 64, eps <= 2e-5) + float slack
 
@@ -180,14 +183,17 @@ def test_ranking_and_topk_match_jax():
         k: v for k, v in dataclasses.asdict(th.summarize([tr])).items() if k != "stage_seconds"}
 
 
-def test_clip_scoring_is_refused_not_ignored():
-    """CLIP scoring (not ported yet) raises; the beam, greedy-in-pool and
-    length-banding options are ported and accepted."""
+def test_clip_beam_pool_and_banding_options_are_accepted():
+    """CLIP scoring, the host spectral scorer, the beam, greedy-in-pool and
+    length-banding options are ported and accepted (an empty batch returns
+    the empty result); an unknown scorer raises."""
     _params, model = _phase3()
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        th.evaluate_molecules([], model, clip_bundle=((), ()), device="cpu")
     dcfg = tconfig.DecodeConfig(beam_candidates=2, greedy_in_pool=True, band_max_len=True)
-    assert th.evaluate_molecules([], model, dcfg, device="cpu") == ([], th.EvalSummary())
+    bundle = (tclip.CLIPRanker(tclip.CLIPConfig(text_layers=1)), tclip.CLIPConfig(text_layers=1))
+    assert th.evaluate_molecules([], model, dcfg, clip_bundle=bundle, clip_block=10,
+                                 spectral_scorer="host", device="cpu") == ([], th.EvalSummary())
+    with pytest.raises(ValueError, match="spectral_scorer"):
+        th.evaluate_molecules([], model, spectral_scorer="gpu", device="cpu")
 
 
 def test_featurize_records_roundtrip():
@@ -196,3 +202,100 @@ def test_featurize_records_roundtrip():
     feats = [tdp.featurize(r, tconfig.ModelConfig()) for r in trecs]
     batch = tdp.collate(feats)
     assert batch.inputs.src_hsqc.shape == (2, 64, 2) and batch.trg_tokens.shape == (2, 64)
+
+
+def test_evaluate_molecules_scores_clip_like_jax(record_property):
+    """``clip_bundle`` with the trained clip_r4 on both sides, the host
+    spectral scorer (``hung_dist_nn``, the same host engine on both sides),
+    injected candidates (sampling off), float32: every candidate's
+    ``clip_loss`` and ``clip_dot`` within 1e-5 * max(1, |x|) of the JAX
+    harness's, the same spectral errors, and the same order under the error
+    ranking with ``clip_loss`` folded in and under ``clip_loss`` alone. The
+    pools (5 to 14 candidates) are padded to the block width 10 and, for the
+    widest, bucketed to 18."""
+    from multimodalspectraltransformer_tpu.rank import clip as jclip
+
+    params, model = _phase3()
+    jrecs, trecs = _records(3)
+    extras = [[r.smiles, "CCO", "c1ccccc1O", "CC(=O)OC"] + molrandom.random_corpus(n, seed=10 + i)
+              for i, (r, n) in enumerate(zip(jrecs, (1, 6, 10)))]
+    dcfg = DecodeConfig(max_len=64)
+    jbundle = jclip.load_bundle(CLIP_R4)
+    tbundle = tclip.load_bundle(CLIP_R4, device="cpu")
+    jres, _ = jh.evaluate_molecules(jrecs, params, ModelConfig(), dcfg, run_mns=False,
+                                    extra_candidates=extras, clip_bundle=jbundle, clip_block=10,
+                                    spectral_scorer="host")
+    tres, tsum = th.evaluate_molecules(trecs, model, dcfg, run_mns=False, extra_candidates=extras,
+                                       clip_bundle=tbundle, clip_block=10, spectral_scorer="host",
+                                       device="cpu")
+    assert "clip" in tsum.stage_seconds and auction.launches == 0
+    sizes = [len(r.candidates) for r in tres]
+    assert min(sizes) < 10 < max(sizes) and th.clip_block_width(max(sizes), 10) == 18
+    worst = 0.0
+    for a, b in zip(jres, tres):
+        assert [c.smiles for c in a.candidates] == [c.smiles for c in b.candidates]
+        for ca, cb in zip(a.candidates, b.candidates):
+            for key in ("clip_loss", "clip_dot"):
+                x, y = getattr(ca, key), getattr(cb, key)
+                assert np.isfinite(x) and np.isfinite(y)
+                assert abs(x - y) <= 1e-5 * max(1.0, abs(x)), (cb.smiles, key, x, y)
+                worst = max(worst, abs(x - y))
+            for key in ("hsqc_error", "cosy_error"):
+                x, y = getattr(ca, key), getattr(cb, key)
+                assert (np.isnan(x) and np.isnan(y)) or x == y, (cb.smiles, key, x, y)
+        for keys in (("hsqc_error", "cosy_error", "clip_loss"), ("clip_loss",)):
+            assert ([c.smiles for c in jh.rank_candidates_by_error(a, keys=keys)]
+                    == [c.smiles for c in th.rank_candidates_by_error(b, keys=keys)])
+    record_property("max_abs_diff_clip", worst)
+
+
+@pytest.mark.parametrize("n_max", [1, 5, 10, 11, 18, 19, 40])
+def test_clip_block_width_is_the_jax_bucketing(n_max):
+    """The width rule of the JAX harness's CLIP block (``clip_block`` a
+    minimum, buckets of 8 above it)."""
+    for clip_block in (0, 10):
+        width = max(clip_block, n_max)
+        if width > clip_block:
+            width = clip_block + ((width - clip_block + 7) // 8) * 8
+        assert th.clip_block_width(n_max, clip_block) == width
+
+
+def _heldout_kwargs(root) -> dict:
+    import tarfile
+
+    with tarfile.open(HELDOUT_CSV) as tf:
+        tf.extractall(root, filter="data")
+    d = root / "heldout_csv"
+    return dict(csv_1h=str(d / "data_1H_0.csv"), csv_13c=str(d / "data_13C_0.csv"),
+                csv_hsqc=str(d / "data_HSQC_0.csv"), csv_cosy=str(d / "data_COSY_0.csv"),
+                ir_folder=str(d / "IR_data"))
+
+
+def test_load_spectra_csvs_matches_jax_on_the_heldout_bundle(tmp_path):
+    """The committed held-out bundle (reference-format CSVs of 1000
+    molecules): the port's reader (standard library ``csv``) gives the JAX
+    loader's records (pandas), field for field, IR spectra bit for bit."""
+    from multimodalspectraltransformer_tpu.data import pipeline as jdp
+
+    kw = _heldout_kwargs(tmp_path)
+    theirs = jdp.load_spectra_csvs(**kw)
+    ours = tdp.load_spectra_csvs(**kw)
+    assert len(ours) == len(theirs) == 1000
+    for a, b in zip(theirs, ours):
+        for f in ("sample_id", "smiles", "h1", "c13", "hsqc", "cosy"):
+            assert getattr(a, f) == getattr(b, f), (a.sample_id, f)
+        assert b.ir.dtype == np.float64 and np.array_equal(a.ir, b.ir)
+    assert [r.sample_id for r in tdp.load_spectra_csvs(**kw, limit=7)] == [r.sample_id for r in ours[:7]]
+
+
+def test_port_simulation_reproduces_the_pinned_records(tmp_path):
+    """The port's simulator (on the CPU, float32) gives the pinned records'
+    HSQC and COSY peak lists exactly for the first 48 held-out molecules (one
+    chunk of the accuracy report), so a pool's true target scores zero
+    spectral error: the records were simulated by the JAX package on the CPU
+    (scripts/regen_heldout_csv.py)."""
+    recs = tdp.load_spectra_csvs(**_heldout_kwargs(tmp_path), limit=48)
+    sims = {s.smiles: s for s in tfactory.simulate_records([r.smiles for r in recs], device="cpu")}
+    assert len(recs) == 48 and set(sims) == {r.smiles for r in recs}
+    for r in recs:
+        assert sims[r.smiles].hsqc == r.hsqc and sims[r.smiles].cosy == r.cosy, r.smiles

@@ -176,3 +176,58 @@ def test_host_engine_is_the_jax_engine():
         np.testing.assert_array_equal(tm.all_mode_errors(a, b), jm.all_mode_errors(a, b))
 
 
+
+
+def _query_and_candidates(rng, n_cands: int, m: int):
+    """One normalized query of m - 2 peaks against n_cands normalized
+    candidates of 1..m peaks, zero-padded to [n_cands, m, 2]."""
+    raw = np.column_stack([rng.uniform(0, 10, m - 2), rng.uniform(0, 200, m - 2)])
+    query = tm.normalize_peaks(raw)
+    counts = rng.integers(1, m + 1, size=n_cands)
+    cands = np.zeros((n_cands, m, 2), np.float32)
+    for i, k in enumerate(counts):
+        cands[i, :k] = tm.normalize_peaks(
+            np.column_stack([rng.uniform(0, 10, k), rng.uniform(0, 200, k)]))
+    return query, cands, len(raw), counts
+
+
+@pytest.mark.parametrize("m", [8, 20])
+def test_batched_assignment_error_matches_scipy_and_jax(m):
+    """One query against C candidates (padding pairs at zero cost): the
+    port's totals (K2's plain version) within N * eps_last of scipy's optimum
+    on the same square costs; the JAX function (off the TPU its XLA auction,
+    eps 1e-4 in its last phase) within N * 1e-4 of it."""
+    rng = np.random.default_rng(m)
+    query, cands, nq, counts = _query_and_candidates(rng, 9, m)
+    ours = tm.batched_assignment_error(query, cands, nq, counts, device="cpu")
+    theirs = np.asarray(jm.batched_assignment_error(query, cands, nq, counts))
+    q = np.zeros((m, 2), np.float32)
+    q[:nq] = query
+    cost = np.linalg.norm(q[None, :, None, :] - cands[:, None, :, :], axis=-1)
+    denom = np.maximum(np.maximum(nq, counts), 1)
+    ref = _opt(cost) / denom
+    assert ours.shape == theirs.shape == (9,)
+    assert np.all(np.abs(ours - ref) <= (m * _eps_last(cost) + 1e-5) / denom)
+    assert np.all(np.abs(theirs - ref) <= (m * 1e-4 + 1e-5) / denom)
+
+
+def test_auction_aliases_are_the_jax_entry_points():
+    """``assignment_cost`` at the Pallas round cap is the JAX entry point
+    (the Pallas kernel in interpret mode) within 1e-5; at the port's default
+    cap it is ``auction_assignment_cost``. ``batched_assignment_error_pallas``
+    is ``rank.matching.batched_assignment_error``, as in the JAX package."""
+    rng = np.random.default_rng(7)
+    cost = rng.uniform(0, 1, (4, 16, 16)).astype(np.float32)
+    ours = tk2.assignment_cost(cost, device="cpu", iters_per_phase=8 * 16)
+    theirs = np.asarray(jk2.assignment_cost(cost, iters_per_phase=8 * 16))
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tk2.assignment_cost(cost, device="cpu"),
+                               tk2.auction_assignment_cost(torch.from_numpy(cost)))
+    query, cands, nq, counts = _query_and_candidates(rng, 5, 8)
+    np.testing.assert_array_equal(
+        tk2.batched_assignment_error_pallas(query, cands, nq, counts, device="cpu"),
+        tm.batched_assignment_error(query, cands, nq, counts, device="cpu"))
+    np.testing.assert_allclose(
+        tk2.batched_assignment_error_pallas(query, cands, nq, counts, device="cpu"),
+        np.asarray(jk2.batched_assignment_error_pallas(query, cands, nq, counts)),
+        rtol=0, atol=8 * 1e-4 + 1e-5)

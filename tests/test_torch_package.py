@@ -15,7 +15,7 @@ from multimodalspectraltransformer_torch.decode import samplers
 from multimodalspectraltransformer_torch.eval import harness
 from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
-from multimodalspectraltransformer_torch.rank import matching
+from multimodalspectraltransformer_torch.rank import clip, matching
 from multimodalspectraltransformer_torch.sim import factory
 from multimodalspectraltransformer_torch.utils.config import ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
@@ -36,9 +36,11 @@ PORT_MODULES = [
     "multimodalspectraltransformer_torch." + m
     for m in ("models.convert", "models.mmt", "ops.decode_attention", "ops.auction",
               "ops.beam_attention", "decode", "decode.functional", "decode.samplers",
-              "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching",
-              "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom")
+              "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching", "rank.clip",
+              "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom",
+              "train.contrastive")
 ]
+PORT_SCRIPTS = [os.path.join(REPO, "scripts", "torch_accuracy_report.py")]
 
 _BLOCKED_IMPORT = r"""
 import importlib.abc, sys
@@ -52,10 +54,14 @@ for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
 sys.meta_path.insert(0, Block())
-import importlib
+import importlib, importlib.util
 
 for m in sys.argv[1:]:
-    importlib.import_module(m)
+    if m.endswith(".py"):  # a script, loaded as a module without running its main
+        spec = importlib.util.spec_from_file_location("_script", m)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    else:
+        importlib.import_module(m)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in BLOCKED + ("multimodalspectraltransformer_tpu",))
 print("LOADED:" + ",".join(bad))
@@ -64,7 +70,7 @@ print("LOADED:" + ",".join(bad))
 
 def test_port_imports_without_jax_or_the_jax_package():
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT, *PORT_MODULES],
+        [sys.executable, "-c", _BLOCKED_IMPORT, *PORT_MODULES, *PORT_SCRIPTS],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -73,16 +79,17 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 def test_port_sources_never_name_jax_imports():
-    """No source file of the port, chip_smoke.py or the kernel_timing.py it
-    shares with scripts/torch_kernel_times.py has an import of JAX, flax,
-    msgpack or the JAX package (the runtime test above covers the modules it
-    imports; this covers every file)."""
+    """No source file of the port, chip_smoke.py, the kernel_timing.py it
+    shares with scripts/torch_kernel_times.py, or the port's accuracy report
+    has an import of JAX, flax, msgpack or the JAX package (the runtime test
+    above covers the modules it imports; this covers every file)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|ninja|"
                      r"multimodalspectraltransformer_tpu)\b", re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_timing.py",
                                              os.path.join("scripts", "torch_kernel_times.py"))]
+    files += PORT_SCRIPTS
     for root, _dirs, names in os.walk(os.path.join(REPO, "multimodalspectraltransformer_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
@@ -111,6 +118,12 @@ ENTRY_POINTS = {
         [], mmt.MultimodalTransformer(ModelConfig.small())),
     "batched_pairwise_assignment_error": lambda: matching.batched_pairwise_assignment_error(
         [np.ones((2, 2))], [np.ones((2, 2))]),
+    "batched_assignment_error": lambda: matching.batched_assignment_error(
+        np.ones((2, 2)), np.ones((1, 2, 2)), 2, np.array([2])),
+    "batched_assignment_error_pallas": lambda: auction.batched_assignment_error_pallas(
+        np.ones((2, 2)), np.ones((1, 2, 2)), 2, np.array([2])),
+    "assignment_cost": lambda: auction.assignment_cost(np.ones((1, 2, 2))),
+    "clip_load_bundle": lambda: clip.load_bundle(os.path.join(REPO, "weights", "clip_r4.msgpack.gz")),
 }
 
 
