@@ -31,7 +31,21 @@ Phases, one line of output each (or a few):
              CPU's plain path, token for token; (c) ``evaluate_molecules`` on
              the 8 molecules of phase 3 with the beam and greedy hypotheses
              in the pools, every gated beam and greedy hypothesis checked to
-             be there.
+             be there;
+6. train   - the trainer at the full width of ``ModelConfig()`` from phase3,
+             no kernel of its own (the JAX training path reaches no Pallas
+             kernel): 256 factory molecules simulated on the card, the
+             training 90% augmented 2x with SMILES variants, batch 64, the
+             device-resident dataset. Median step time after 5 warm-up steps,
+             samples/s, target tokens/s and peak memory in bf16 mixed
+             precision and in fp32; FLOPs per step (FlopCounterMode) and
+             TFLOP/s; ``run_training`` for 40 bf16 steps at lr 3e-5 with
+             validation, the per-epoch plateau and checkpoints, first and last
+             loss. Checks: one fp32 step (dropout and TF32 off) on the card
+             against the CPU; 30 fp32 steps from the port's own init halve the
+             loss on one batch of 8; a checkpoint resumed at step 3 continues
+             as the uninterrupted run (dropout on); the bf16 msgpack export
+             reads back as the parameters rounded to bf16; every loss finite.
 
 The timed shapes and the timers come from ``kernel_timing.py``, which
 ``scripts/torch_kernel_times.py`` shares. Each timed kernel reports
@@ -52,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -63,6 +78,7 @@ import kernel_timing as kt
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 K1_SOURCE = "multimodalspectraltransformer_torch/csrc/decode_attention.cu"
 K1_REPLACES = "multimodalspectraltransformer_tpu/ops/decode_attention.py:49"
@@ -638,6 +654,295 @@ def beam_path(dev, model, records, dcfg, main_results) -> int:
     return k3_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, n: int, seed: int, dev):
+    """A featurized batch of ``n`` synthetic records on ``dev``."""
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+
+    recs = dp.synthetic_dataset(n, seed=seed)
+    return dp.to_device(dp.collate([dp.featurize(r, cfg) for r in recs]), dev)
+
+
+def resolved_gradient(g, g_other, adam_eps: float = 1e-8):
+    """Where AdamW's step is fixed by the gradient ``g`` and not by its
+    rounding, given a second computation ``g_other`` of it: zero in both, or
+    at least 1e-4 of the leaf's largest magnitude (the bound to which two
+    float32 gradients are held) and at least 100 eps (where g / (|g| + eps)
+    no longer depends on eps). A gradient zero in one computation and
+    rounding noise in the other is not resolved: AdamW's first step moves
+    the parameter by lr * g / (|g| + eps) for the noise."""
+    a = g.abs()
+    return ((g == 0) & (g_other == 0)) | ((a >= 1e-4 * a.max()) & (a >= 100 * adam_eps))
+
+
+def train_step_card_vs_cpu(dev, batch_size: int = 8) -> None:
+    """Check 1: one fp32 train step from phase3 (dropout off, TF32 off, lr
+    3e-5) on the card and on the CPU. The losses agree within 1e-5
+    relative; each gradient leaf within 1e-4 of its largest magnitude; the
+    parameters within 1e-6 wherever the gradient is resolved
+    (``resolved_gradient``). Elsewhere AdamW's first step,
+    lr * g / (|g| + eps), turns rounding noise into an update of up to lr
+    with either sign (the attention key biases, whose gradient is zero in
+    exact arithmetic): those stay within 2 lr and are under 20% of the
+    parameters."""
+    import copy
+
+    import torch
+
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+    from multimodalspectraltransformer_torch.utils.config import (MMTConfig, ModelConfig,
+                                                                  TrainConfig)
+
+    cfg = MMTConfig(model=ModelConfig(dropout=0.0), train=TrainConfig(learning_rate=3e-5))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        host = mmt.load_model(PHASE3, cfg.model, device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        out = {}
+        for name, model, d in (("cpu", host, "cpu"), ("card", card, dev)):
+            state = st.create_state(cfg.train, model)
+            state, m = step.train_step(cfg, state, _train_batch(cfg.model, batch_size, 11, d))
+            out[name] = (float(m.loss), {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                         {k: v.cpu() for k, v in model.state_dict().items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out["card"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_err = max(((g_card[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                   for k, g in g_cpu.items())
+    lr = cfg.train.learning_rate
+    worst_resolved = worst = 0.0
+    n_all = n_unresolved = 0
+    where = ""
+    for k, p in p_cpu.items():
+        g = g_cpu[k]
+        resolved = resolved_gradient(g, g_card[k])
+        diff = (p_card[k] - p).abs()
+        worst = max(worst, diff.max().item())
+        if resolved.any() and diff[resolved].max().item() > worst_resolved:
+            worst_resolved = diff[resolved].max().item()
+            i = int(torch.where(resolved, diff, torch.zeros_like(diff)).argmax())
+            where = (f" (at {k}[{i}]: gradient {g.flatten()[i].item():.3e} on the CPU, "
+                     f"{g_card[k].flatten()[i].item():.3e} on the card)")
+        n_all += p.numel()
+        n_unresolved += int((~resolved).sum())
+    ok = (loss_rel <= 1e-5 and grad_err <= 1e-4 and worst_resolved <= 1e-6 and worst <= 2 * lr
+          and n_unresolved < 0.2 * n_all)
+    log(f"[train] check 1, one fp32 step from phase3 (batch {batch_size}, TF32 off), card vs CPU: "
+        f"loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-5); gradients within "
+        f"{grad_err:.2e} of their leaf's max (tol 1e-4); params max diff {worst_resolved:.2e} where "
+        f"the gradient is resolved{where} (tol 1e-6), {worst:.2e} over all (tol {2 * lr:.0e}, "
+        f"{n_unresolved} of {n_all} unresolved) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a train step on the card differs from the CPU")
+
+
+def resume_exact(dev) -> None:
+    """Check 3: fp32 with dropout on, from phase3: 3 steps, a checkpoint, 2
+    more; a fresh state restored from the checkpoint takes the same 2 steps.
+    Parameters and loss within 1e-6 (the steps are the same kernels on the
+    same inputs, so 0 is expected)."""
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.train import checkpoint as ckpt
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, TrainConfig
+
+    cfg = MMTConfig(train=TrainConfig(learning_rate=3e-5))
+    batch = _train_batch(cfg.model, 16, 12, dev)
+    fresh = lambda: st.create_state(cfg.train, mmt.load_model(PHASE3, cfg.model, device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = ckpt.CheckpointManager(tmp, keep=1)
+        state = fresh()
+        for _ in range(3):
+            state, _ = step.train_step(cfg, state, batch, seed=5)
+        mgr.save(state)
+        for _ in range(2):
+            state, m_live = step.train_step(cfg, state, batch, seed=5)
+        restored = mgr.restore(fresh())
+        for _ in range(2):
+            restored, m_rest = step.train_step(cfg, restored, batch, seed=5)
+    diff = max((a - b).abs().max().item() for a, b in zip(state.model.state_dict().values(),
+                                                          restored.model.state_dict().values()))
+    loss_diff = abs(float(m_live.loss) - float(m_rest.loss))
+    ok = restored.step == state.step == 5 and diff <= 1e-6 and loss_diff <= 1e-6
+    log(f"[train] check 3, resume at step 3 then 2 steps (fp32, dropout on) vs 5 uninterrupted: "
+        f"params max diff {diff:.2e}, loss diff {loss_diff:.2e} (tol 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a resumed run differs from the uninterrupted one")
+
+
+def _flops_per_step(cfg, state, batch) -> float:
+    """FLOPs of one train step, counted by FlopCounterMode (forward and
+    backward matrix products; the optimizer's elementwise work is not
+    counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodalspectraltransformer_torch.train import step
+
+    with FlopCounterMode(display=False) as counter:
+        step.train_step(cfg, state, batch)
+    return float(counter.get_total_flops())
+
+
+def time_steps(dev, loader, cfg, init, warmup: int = 5, timed: int = 10) -> dict:
+    """Median step time over ``timed`` steps after ``warmup``, with samples/s,
+    target tokens/s (non-pad teacher-forced targets) and peak memory."""
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+
+    model = mmt.MultimodalTransformer(cfg.model)
+    model.load_state_dict(init)
+    state = st.create_state(cfg.train, model.to(dev))
+    dd = loader.device_dataset(dev)
+    rows, epoch = [], 0
+    while len(rows) < warmup + timed:
+        rows += list(loader.epoch_row_batches(epoch))
+        epoch += 1
+    rows = rows[: warmup + timed]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, tokens = [], [], []
+    for idx in rows:
+        b = dp.gather_rows(dd, idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step.train_step(cfg, state, b)
+        losses.append(float(m.loss))  # waits for the step
+        times.append(time.perf_counter() - t0)
+        tokens.append(int((b.trg_tokens[:, 1:] != 0).sum()))
+    peak = torch.cuda.max_memory_allocated()
+    flops = _flops_per_step(cfg, state, dp.gather_rows(dd, rows[0]))
+    ms = float(np.median(times[warmup:])) * 1e3
+    return dict(step_ms=ms, samples_per_s=loader.batch_size / ms * 1e3,
+                target_tokens_per_s=float(np.mean(tokens[warmup:])) / ms * 1e3,
+                flops_per_step=flops, tflops_per_s=flops / ms * 1e-9, peak_bytes=peak,
+                losses=losses)
+
+
+def train_data(dev, mcfg):
+    """The training phase's data and start: ``random_corpus(256, seed=3133)``
+    simulated on the card, the last 10% for validation, the rest augmented
+    2x with SMILES variants (the recipe that produced phase3),
+    batch 64; phase3's parameters. Returns (train loader, validation loader,
+    state dict)."""
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import convert
+    from multimodalspectraltransformer_torch.sim import factory
+
+    smiles = molrandom.random_corpus(256, seed=3133)
+    recs = factory.simulate_records(smiles, sample_ids=[f"f{i}" for i in range(len(smiles))],
+                                    device=dev)
+    n_val = max(1, int(len(recs) * 0.1))
+    train_recs = dp.augment_records(recs[:-n_val], 2, seed=0)
+    opts = dp.FeaturizeOptions(use_given_smiles_form=True)
+    loader = dp.Loader(train_recs, mcfg, batch_size=64, opts=opts)
+    val = dp.Loader(recs[-n_val:], mcfg, batch_size=min(64, n_val), drop_remainder=False)
+    return loader, val, convert.from_jax_params(convert.read_msgpack(PHASE3))
+
+
+def train_phase(dev, card: str) -> None:
+    """Phase 6 (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.models import convert, mmt
+    from multimodalspectraltransformer_torch.train import checkpoint as ckpt
+    from multimodalspectraltransformer_torch.train import loop, step
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    mcfg = ModelConfig()
+    loader, val, init = train_data(dev, mcfg)
+    bf16 = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=3e-5, mixed_precision=True,
+                                                   num_epochs=100, save_interval_steps=20))
+    fp32 = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=3e-5))
+    dd = loader.device_dataset(dev)
+    log(f"[train] set-up: 256 molecules simulated, "
+        f"{len(loader.records)} training records after 2x augmentation "
+        f"({dd.trg_tokens.shape[0]} featurized, {len(loader)} batches of 64 an epoch), "
+        f"{len(val.records)} validation records, in {time.perf_counter() - t_phase:.2f} s")
+
+    rows = {}
+    for name, cfg in (("bf16", bf16), ("fp32", fp32)):
+        rows[name] = r = time_steps(dev, loader, cfg, init)
+        peak = BF16_FLOPS if name == "bf16" else F32_FLOPS
+        log(f"[train] {name} step at batch 64: median {r['step_ms']:.3f} ms after 5 warm-up steps, "
+            f"{r['samples_per_s']:.1f} samples/s, {r['target_tokens_per_s']:.0f} target tokens/s, "
+            f"{r['flops_per_step'] / 1e12:.4f} TFLOP a step, {r['tflops_per_s']:.2f} TFLOP/s "
+            f"({r['tflops_per_s'] * 1e12 / peak:.1%} of the {name} peak), peak memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB; {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = loop.run_training(bf16, loader, val_loader=val, init_params=init,
+                                checkpoint_dir=os.path.join(tmp, "ckpt"), max_steps=40, device=dev,
+                                metrics_path=os.path.join(tmp, "metrics.jsonl"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = [x for x in res.metrics.history if "train_loss" in x]
+        vals = [x["val_loss"] for x in res.metrics.history if "val_loss" in x]
+        saved = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+        export = os.path.join(tmp, "params.msgpack.gz")
+        ckpt.export_params_msgpack(res.state.model, export, dtype=torch.bfloat16)
+        back = convert.from_jax_params(convert.read_msgpack(export))
+    log(f"[train] run_training bf16 from phase3, lr 3e-5: {res.steps} steps in {wall:.2f} s "
+        f"({res.steps * 64 / wall:.1f} samples/s with validation and checkpoints), first loss "
+        f"{hist[0]['train_loss']:.4f}, last {hist[-1]['train_loss']:.4f}, val losses "
+        f"{', '.join(f'{v:.4f}' for v in vals)}, plateau scale {float(res.state.plateau.scale)}, "
+        f"checkpoints {saved}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if res.steps != 40 or len(vals) < 2 or not saved:
+        raise AssertionError("run_training did not take 40 steps over several epochs with "
+                             "validation and checkpoints")
+    # check 4: the bf16 export reads back as the parameters rounded to bf16
+    mismatched = [k for k, v in res.state.model.state_dict().items()
+                  if not torch.equal(back[k], v.cpu().to(torch.bfloat16).float())]
+    log(f"[check] check 4, the bf16 params.msgpack.gz read back: {len(back)} leaves, "
+        f"{len(mismatched)} differ from the parameters rounded to bf16")
+    if mismatched:
+        raise AssertionError(f"export differs from the bf16-rounded parameters: {mismatched[:3]}")
+
+    train_step_card_vs_cpu(dev)
+
+    # check 2: from the port's own init, 30 fp32 steps on one batch of 8 halve the loss
+    cfg = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=1e-3, weight_fp=0.1))
+    state = st.create_state(cfg.train, mmt.init_model(mcfg, 0, dev))
+    batch = _train_batch(mcfg, 8, 13, dev)
+    overfit = [float(step.train_step(cfg, state, batch)[1].loss) for _ in range(30)]
+    log(f"[train] check 2, 30 fp32 steps on one batch of 8 from the port's init: loss "
+        f"{overfit[0]:.4f} -> {overfit[-1]:.4f} {'ok' if overfit[-1] < 0.5 * overfit[0] else 'FAIL'}")
+    if not overfit[-1] < 0.5 * overfit[0]:
+        raise AssertionError("30 steps on one batch did not halve the loss")
+
+    resume_exact(dev)
+
+    # check 5: every loss finite
+    losses = (rows["bf16"]["losses"] + rows["fp32"]["losses"] + overfit
+              + [x["train_loss"] for x in hist] + vals)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a training loss is not finite")
+    log(f"[check] check 5: all {len(losses)} training and validation losses finite; the training "
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--save-hsqc", metavar="PATH",
@@ -676,6 +981,7 @@ def main() -> int:
     k3_row = check_k3(dev)
     launches, hsqc_cost, (records, model, dcfg, results) = main_path(dev)
     launches["K3"] = beam_path(dev, model, records, dcfg, results)
+    train_phase(dev, card)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

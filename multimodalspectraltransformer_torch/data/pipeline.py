@@ -1,10 +1,12 @@
-"""Host-side data: spectra CSVs -> records -> fixed-shape model inputs.
+"""Spectra CSVs -> records -> fixed-shape model inputs -> training batches.
 
-The inference subset of the JAX package's ``data/pipeline.py``, carried as
-the port's own copy (numpy, no device code): ``SampleRecord``,
+The port's copy of the JAX package's ``data/pipeline.py``: ``SampleRecord``,
 ``load_spectra_csvs`` (read with the standard library's ``csv``, where the
-JAX package uses pandas), ``bin_ir``, ``_pad_points``, ``featurize`` and
-``collate``. Same normalizations: 1H
+JAX package uses pandas), ``bin_ir``, ``_pad_points``, ``featurize``,
+``collate``, the ``Loader`` of training batches with its device-resident
+dataset (``device_dataset``, ``gather_rows``), the synthetic fixtures
+(``synthetic_dataset``) and the SMILES-variant expansion
+(``augment_records``). Same normalizations: 1H
 ppm/10 (intensity untouched), 13C ppm/200, HSQC (H/10, C/200), COSY (H/10,
 H/10); zero-pad to ``spectrum_points`` with inverted masks (1 = padding);
 IR mean-binned to ``ir_bins`` and max-normalized; SMILES canonicalized and
@@ -15,17 +17,23 @@ from __future__ import annotations
 
 import ast
 import csv
+import dataclasses
+import hashlib
 import os
 import random
-from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+import sys
+from dataclasses import dataclass, field
+from typing import Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..chem import api as chem
 from ..chem import tokenizer
 from ..models.mmt import MMTBatch
 from ..utils.config import ModelConfig
+from ..utils.device import DeviceLike, resolve_device
+from . import samplers
 
 @dataclass
 class SampleRecord:
@@ -294,13 +302,13 @@ def featurize(
 
 
 
-class Batch(NamedTuple):
-    inputs: MMTBatch  # numpy arrays
+class TrainBatch(NamedTuple):
+    inputs: MMTBatch  # numpy arrays or tensors
     trg_tokens: np.ndarray  # [B, spectrum_points] <SOS>...<EOS> padded
     trg_fp: np.ndarray  # [B, fingerprint_size]
 
 
-def collate(samples: Sequence[dict]) -> Batch:
+def collate(samples: Sequence[dict]) -> TrainBatch:
     """Stack featurized samples into numpy model inputs and targets."""
     st = lambda k: np.stack([s[k] for s in samples])
     inputs = MMTBatch(
@@ -313,4 +321,261 @@ def collate(samples: Sequence[dict]) -> Batch:
         src_ms=st("src_ms"), mask_ms=st("mask_ms"),
         mw=st("mw"),
     )
-    return Batch(inputs, st("trg_tokens"), st("trg_fp"))
+    return TrainBatch(inputs, st("trg_tokens"), st("trg_fp"))
+
+
+def to_device(batch: TrainBatch, device) -> TrainBatch:
+    """A batch of numpy arrays (or tensors) as tensors on ``device``."""
+    return TrainBatch(batch.inputs.to(device), torch.as_tensor(batch.trg_tokens).to(device),
+                      torch.as_tensor(batch.trg_fp).to(device))
+
+
+@dataclass
+class Loader:
+    """Deterministic, seeded batch iterator over featurized records.
+
+    ``epoch`` featurizes on the host (caching deterministic features across
+    epochs) and yields numpy batches; ``device_dataset`` featurizes every
+    record once into one compact batch on the device, and
+    ``epoch_row_batches`` + ``gather_rows`` assemble the same epoch's batches
+    there. ``order_strategy``: "shuffle", "weight_sorted" or "tanimoto"
+    (``data/samplers.py``).
+    """
+
+    records: list
+    mcfg: ModelConfig
+    batch_size: int
+    opts: FeaturizeOptions = field(default_factory=FeaturizeOptions)
+    seed: int = 0
+    drop_remainder: bool = True
+    order_strategy: str = "shuffle"
+    cache_features: bool = True
+    _feature_cache: dict = field(default_factory=dict, repr=False)
+    _device_dataset: Optional[TrainBatch] = field(default=None, init=False, repr=False)
+    _device_kept_smiles: Optional[list] = field(default=None, init=False, repr=False)
+
+    def __len__(self) -> int:
+        return len(self.records) // self.batch_size
+
+    def _stochastic(self) -> bool:
+        return (self.opts.blank_percentage > 0 or self.opts.randomize_smiles
+                or self.opts.hsqc_noise_max > 0)
+
+    def epoch(self, epoch: int) -> Iterator[TrainBatch]:
+        order = samplers.epoch_order(self.order_strategy, [r.smiles for r in self.records],
+                                     self.batch_size, self.seed, epoch)
+        rng = random.Random(self.seed * 1_000_003 + epoch * 1009)
+        use_cache = self.cache_features and not self._stochastic()
+        buf: list[dict] = []
+        for idx in order:
+            idx = int(idx)
+            if use_cache and idx in self._feature_cache:
+                feat = self._feature_cache[idx]
+            else:
+                feat = featurize(self.records[idx], self.mcfg, self.opts, rng)
+                if use_cache:
+                    self._feature_cache[idx] = feat
+            if feat is None:
+                continue
+            buf.append(feat)
+            if len(buf) == self.batch_size:
+                yield collate(buf)
+                buf = []
+        if buf and not self.drop_remainder:
+            yield collate(buf)
+
+    # ---- device-resident dataset -----------------------------------------
+    #
+    # Compact storage dtypes: spectra float16 (far finer than the bf16 the
+    # compute path rounds them to), masks int8, token ids uint8 (SMILES vocab
+    # 43, MF vocab 212), fingerprint bits int8; ``gather_rows`` restores the
+    # canonical float32/int32 per batch. About 4.1 KB a record.
+    _F16_FIELDS = ("src_1h", "src_13c", "src_hsqc", "src_cosy", "src_ir")
+    _I8_FIELDS = ("mask_1h", "mask_13c", "mask_hsqc", "mask_cosy", "mask_mf", "mask_ms")
+    _U8_FIELDS = ("src_mf", "src_ms")
+
+    @classmethod
+    def compact_train_batch(cls, big: TrainBatch) -> TrainBatch:
+        """Re-encode a featurized numpy batch with the compact storage dtypes
+        (idempotent)."""
+        rep = {}
+        for k in MMTBatch._fields:
+            v = np.asarray(getattr(big.inputs, k))
+            if k in cls._F16_FIELDS:
+                v = v.astype(np.float16)
+            elif k in cls._I8_FIELDS:
+                v = v.astype(np.int8)
+            elif k in cls._U8_FIELDS:
+                if v.size and (v.min() < 0 or v.max() >= 256):
+                    raise ValueError(f"{k} exceeds uint8")
+                v = v.astype(np.uint8)
+            rep[k] = v  # mw stays float32: the exact conditioning value
+        trg = np.asarray(big.trg_tokens)
+        if trg.size and (trg.min() < 0 or trg.max() >= 256):
+            raise ValueError("trg_tokens exceeds uint8")
+        return TrainBatch(MMTBatch(**rep), trg.astype(np.uint8),
+                          np.asarray(big.trg_fp).astype(np.int8))
+
+    def _featurize_all(self, max_bytes: int):
+        """Featurize every record into one compact numpy batch -> (batch, kept
+        record indices); None (with the reason printed) when featurization is
+        stochastic, nothing featurizes or the batch exceeds ``max_bytes``."""
+        if self._stochastic():
+            print("device_dataset: featurization is stochastic (per-epoch SMILES "
+                  "randomization / blanking / noise); falling back to the host loader")
+            return None
+        # bulk chemistry through the threaded native library: canonicalize
+        # once, then formula, MW and fingerprint of the canonical forms
+        canons = chem.batch_canonicalize([r.smiles for r in self.records])
+        safe = [c if c is not None else "" for c in canons]
+        mfs = chem.batch_mol_formula(safe)
+        mws = chem.batch_exact_mol_wt(safe)
+        fps, fp_ok = chem.batch_morgan_fp(safe, 2, self.mcfg.fingerprint_size)
+        feats, kept = [], []
+        for i, r in enumerate(self.records):
+            pre = (canons[i], mfs[i] if canons[i] is not None else None, float(mws[i]),
+                   fps[i] if fp_ok[i] else None)
+            f = featurize(r, self.mcfg, self.opts, pre=pre)
+            if f is not None:
+                feats.append(f)
+                kept.append(i)
+        if not feats:
+            return None
+        if len(feats) != len(self.records):
+            print(f"device_dataset: dropping {len(self.records) - len(feats)} records that "
+                  f"failed featurization (keeping the device path with {len(feats)} records)",
+                  file=sys.stderr)
+        big = self.compact_train_batch(collate(feats))
+        nbytes = sum(np.asarray(x).nbytes for x in (*big.inputs, big.trg_tokens, big.trg_fp))
+        if nbytes > max_bytes:
+            print(f"device_dataset: featurized set is {nbytes / (1 << 30):.1f} GiB > cap "
+                  f"{max_bytes / (1 << 30):.1f} GiB; falling back to the host path",
+                  file=sys.stderr)
+            return None
+        return big, np.asarray(kept, np.int64)
+
+    def device_dataset(self, device: DeviceLike = None,
+                       max_bytes: int = 6 << 30) -> Optional[TrainBatch]:
+        """Every featurizable record in one compact batch on ``device`` (cuda
+        unless asked otherwise); None when featurization is stochastic or the
+        set exceeds ``max_bytes``. Made once and cached."""
+        if self._device_dataset is not None:
+            return self._device_dataset
+        dev = resolve_device(device)
+        out = self._featurize_all(max_bytes)
+        if out is None:
+            return None
+        big, kept = out
+        self._device_kept_smiles = [self.records[int(i)].smiles for i in kept]
+        self._device_dataset = to_device(big, dev)
+        return self._device_dataset
+
+    def epoch_row_batches(self, epoch: int) -> Iterator[np.ndarray]:
+        """Per-batch row indices into ``device_dataset()``, in the order
+        ``epoch`` uses (rows index the featurizable records)."""
+        if self._device_kept_smiles is None:
+            raise RuntimeError("call device_dataset() first")
+        order = samplers.epoch_order(self.order_strategy, self._device_kept_smiles,
+                                     self.batch_size, self.seed, epoch)
+        for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
+            yield np.asarray(order[i : i + self.batch_size], np.int32)
+        rem = len(order) % self.batch_size
+        if rem and not self.drop_remainder:
+            yield np.asarray(order[-rem:], np.int32)
+
+
+def _canonical(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return x.float()
+    if x.dtype in (torch.int8, torch.uint8):
+        return x.int()
+    return x
+
+
+def gather_rows(dataset: TrainBatch, idx) -> TrainBatch:
+    """Rows ``idx`` of a device dataset, gathered on its device, with the
+    compact storage dtypes restored to float32/int32."""
+    idx = torch.as_tensor(idx, device=dataset.trg_tokens.device).long()
+    inputs = MMTBatch(*(_canonical(x[idx]) for x in dataset.inputs))
+    return TrainBatch(inputs, _canonical(dataset.trg_tokens[idx]), dataset.trg_fp[idx].float())
+
+
+# --------------------------------------------------------------------------
+# Synthetic data: plausible molecules + pseudo-spectra for tests and smoke runs
+# --------------------------------------------------------------------------
+
+_FRAGMENTS = [
+    "CC", "CCC", "CC(C)", "CCO", "CC=O", "C(=O)O", "C(=O)N", "CN", "CO",
+    "c1ccccc1", "c1ccncc1", "c1ccc(cc1)", "C1CCCCC1", "CCl", "CBr", "C#N",
+    "CF", "CS", "C=C", "COC", "CC(N)",
+]
+
+
+def random_smiles(rng: random.Random, max_frags: int = 4) -> str:
+    """A random valid molecule made by concatenating fragments."""
+    n = rng.randint(1, max_frags)
+    smi = "".join(rng.choice(_FRAGMENTS) for _ in range(n))
+    can = chem.canonicalize(smi)
+    return can if can is not None else "CCO"
+
+
+def _env_hash(*vals) -> float:
+    """A process-stable pseudo-shift in [0, 1)."""
+    digest = hashlib.sha256("|".join(map(str, vals)).encode()).digest()
+    return int.from_bytes(digest[:4], "little") % 1000 / 1000.0
+
+
+def synthetic_record(rng: random.Random, sample_id: str) -> SampleRecord:
+    """Deterministic pseudo-spectra derived from the molecule's structure
+    (hash-based shifts)."""
+    from ..chem.smiles import parse_smiles
+
+    smi = random_smiles(rng)
+    mol = parse_smiles(smi)
+    h1, c13, hsqc, cosy = [], [], [], []
+    for i, a in enumerate(mol.atoms):
+        env = _env_hash(a.symbol, mol.degree(i), mol.total_h(i), a.aromatic)
+        if a.symbol == "C":
+            c_shift = 10 + env * 180
+            c13.append(round(c_shift, 2))
+            nh = mol.total_h(i)
+            if nh:
+                h_shift = 0.5 + env * 8
+                h1.append([round(h_shift, 2), nh])
+                hsqc.append([round(h_shift, 2), round(c_shift, 2)])
+    for b in mol.bonds:
+        a1, a2 = mol.atoms[b.a1], mol.atoms[b.a2]
+        if a1.symbol == "C" and a2.symbol == "C" and mol.total_h(b.a1) and mol.total_h(b.a2):
+            e1 = _env_hash(a1.symbol, mol.degree(b.a1), mol.total_h(b.a1), a1.aromatic)
+            e2 = _env_hash(a2.symbol, mol.degree(b.a2), mol.total_h(b.a2), a2.aromatic)
+            cosy.append([round(0.5 + e1 * 8, 2), round(0.5 + e2 * 8, 2)])
+    ir = np.abs(np.sin(np.linspace(0, 20, 1801) * (1 + int(_env_hash(smi) * 7000) % 7)))
+    return SampleRecord(sample_id, smi, h1=h1 or None, c13=c13 or None, hsqc=hsqc or None,
+                        cosy=cosy or None, ir=ir)
+
+
+def synthetic_dataset(n: int, seed: int = 0) -> list[SampleRecord]:
+    rng = random.Random(seed)
+    return [synthetic_record(rng, str(i)) for i in range(n)]
+
+
+def augment_records(records: Sequence[SampleRecord], variants: int,
+                    seed: int = 0) -> list[SampleRecord]:
+    """Each record plus up to ``variants - 1`` randomized-SMILES copies sharing
+    its spectra (the reference's SMILES augmentation made ahead of time, so
+    featurization stays deterministic and the dataset can live on the
+    device). Consume with ``FeaturizeOptions(use_given_smiles_form=True)``."""
+    if variants <= 1:
+        return list(records)
+    rng = random.Random(seed)
+    out: list[SampleRecord] = []
+    for r in records:
+        out.append(r)
+        seen = {r.smiles}
+        for v in range(variants - 1):
+            rnd = chem.randomize(r.smiles, rng)
+            if rnd is None or rnd in seen:
+                continue
+            seen.add(rnd)
+            out.append(dataclasses.replace(r, sample_id=f"{r.sample_id}~{v + 1}", smiles=rnd))
+    return out

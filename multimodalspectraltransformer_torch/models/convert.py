@@ -14,6 +14,10 @@ the reference torch model's keys:
 - the MF embedding keeps all 213 rows (the 213th row exists because the
   reference vocabulary can emit id 212).
 
+``to_jax_params`` is the inverse of ``from_jax_params``, and ``write_msgpack``
+writes a tree in flax's msgpack encoding (bf16 leaves included), so the port's
+parameters load in the JAX package's ``import_params_msgpack``.
+
 ``from_jax_clip_params`` does the same for the CLIP ranking tower
 (``rank/clip.py``), whose bundle ``weights/clip_r4.msgpack.gz`` holds float32
 leaves under a top-level ``params`` key.
@@ -22,6 +26,7 @@ leaves under a top-level ``params`` key.
 from __future__ import annotations
 
 import gzip
+import os
 import struct
 from typing import Any, Mapping
 
@@ -145,6 +150,125 @@ def read_msgpack(path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# msgpack encoding, as msgpack-python packs flax.serialization.to_bytes
+# ---------------------------------------------------------------------------
+
+def _pack_len(out: bytearray, n: int, fix: tuple, codes: tuple) -> None:
+    """A length header: the fix form (``fix`` = (base, max)) or the smallest of
+    the 8/16/32-bit forms whose codes ``codes`` gives (None where a width has
+    no form)."""
+    base, fix_max = fix
+    if fix_max is not None and n <= fix_max:
+        out.append(base | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(out: bytearray, n: int) -> None:
+    if 0 <= n < 0x80:
+        out.append(n)
+    elif -32 <= n < 0:
+        out.append(n & 0xFF)
+    elif n >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+            if n <= top:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"integer {n} too large for msgpack")
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                               (0xD2, ">i", -0x80000000), (0xD3, ">q", -(2**63))):
+            if n >= low:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"integer {n} too small for msgpack")
+
+
+def _array_payload(x) -> bytes:
+    """flax's ndarray ext payload: msgpack (shape, dtype name, C bytes)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            shape, name, raw = tuple(x.shape), "bfloat16", x.view(torch.int16).numpy().tobytes()
+        else:
+            x = x.numpy()
+    if isinstance(x, np.ndarray):
+        shape, name, raw = x.shape, x.dtype.name, np.ascontiguousarray(x).tobytes()
+    return _packb([list(shape), name, raw])
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), (0xA0, 31), (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), (0, None), (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), (0x90, 15), (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, Mapping):
+        _pack_len(out, len(obj), (0x80, 15), (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (np.ndarray, torch.Tensor, np.generic)):
+        code = _EXT_NPSCALAR if isinstance(obj, np.generic) else _EXT_NDARRAY
+        data = _array_payload(np.asarray(obj) if isinstance(obj, np.generic) else obj)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            out.append(fixext[len(data)])
+        else:
+            _pack_len(out, len(data), (0, None), (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", code)
+        out += data
+    else:
+        raise TypeError(f"cannot msgpack a {type(obj).__name__}")
+
+
+def _packb(obj: Any) -> bytes:
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def write_msgpack(tree: Mapping[str, Any], path: str) -> None:
+    """Write a nested dict of arrays (numpy, or torch tensors, bfloat16
+    included) as ``flax.serialization.to_bytes`` encodes it, byte for byte;
+    ``.gz`` gzips the stream (level 6, as the JAX package's export does).
+    The file is written to a per-process temporary name and then moved into
+    place."""
+    data = _packb(tree)
+    tmp = f"{path}.tmp{os.getpid()}"
+    if path.endswith(".gz"):
+        with gzip.open(tmp, "wb", compresslevel=6) as f:
+            f.write(data)
+    else:
+        with open(tmp, "wb") as f:
+            f.write(data)
+    os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
 # JAX parameter tree -> port state dict
 # ---------------------------------------------------------------------------
 
@@ -216,6 +340,120 @@ def from_jax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for k in ("fp1", "fc_out", "real_data_linear"):
         _linear(sd, k, tree[k])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# port state dict -> JAX parameter tree
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _dense_tree(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _mha_tree(sd: Mapping, prefix: str) -> dict:
+    return {"in_proj_weight": _np(sd[f"{prefix}.in_proj_weight"]),
+            "in_proj_bias": _np(sd[f"{prefix}.in_proj_bias"]),
+            "out_proj_weight": _np(sd[f"{prefix}.out_proj.weight"]),
+            "out_proj_bias": _np(sd[f"{prefix}.out_proj.bias"])}
+
+
+def _norm_tree(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _encoder_layer_tree(sd: Mapping, prefix: str) -> dict:
+    return {"self_attn": _mha_tree(sd, f"{prefix}.self_attn"),
+            "norm1": _norm_tree(sd, f"{prefix}.norm1"),
+            "linear1": _dense_tree(sd, f"{prefix}.linear1"),
+            "linear2": _dense_tree(sd, f"{prefix}.linear2"),
+            "norm2": _norm_tree(sd, f"{prefix}.norm2")}
+
+
+def _n_layers(sd: Mapping, prefix: str) -> int:
+    return len({k.split(".")[2] for k in sd if k.startswith(prefix + ".layers.")})
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def to_jax_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's MMT state dict -> the JAX package's parameter tree (nested
+    dicts of float32 numpy arrays; the five modality encoders stacked on a
+    leading axis). The inverse of ``from_jax_params``."""
+    tree: dict = {ours: _dense_tree(sd, theirs) for ours, theirs in SPEC_EMBED_TORCH_KEYS.items()}
+    tree["embed_mf"] = {"embedding": _np(sd["linear_embedding_MF.embedding.weight"])}
+    tree["embed_ms"] = {"embedding": _np(sd["linear_embedding_MS.embedding.weight"])}
+    tree["embed_trg"] = {"embedding": _np(sd["embed_trg.weight"])}
+    tree["pe_trg"] = {"embedding": _np(sd["pe_trg.weight"])}
+    n_enc = _n_layers(sd, ENCODER_TORCH_PREFIXES[0])
+    tree["modality_encoders"] = {
+        f"layers_{i}": _stack([_encoder_layer_tree(sd, f"{p}.layers.{i}")
+                               for p in ENCODER_TORCH_PREFIXES])
+        for i in range(n_enc)
+    }
+    tree["encoder_cross"] = {f"layers_{i}": _encoder_layer_tree(sd, f"encoder_cross.layers.{i}")
+                             for i in range(_n_layers(sd, "encoder_cross"))}
+    decoder = {}
+    for i in range(_n_layers(sd, "decoder")):
+        prefix = f"decoder.layers.{i}"
+        decoder[f"layers_{i}"] = {
+            "self_attn": _mha_tree(sd, f"{prefix}.self_attn"),
+            "norm1": _norm_tree(sd, f"{prefix}.norm1"),
+            "multihead_attn": _mha_tree(sd, f"{prefix}.multihead_attn"),
+            "norm2": _norm_tree(sd, f"{prefix}.norm2"),
+            "linear1": _dense_tree(sd, f"{prefix}.linear1"),
+            "linear2": _dense_tree(sd, f"{prefix}.linear2"),
+            "norm3": _norm_tree(sd, f"{prefix}.norm3"),
+        }
+    tree["decoder"] = decoder
+    for k in ("fp1", "fc_out", "real_data_linear"):
+        tree[k] = _dense_tree(sd, k)
+    return tree
+
+
+def jax_paths(sd: Mapping[str, torch.Tensor]) -> dict[str, str]:
+    """Each key of the port's MMT state dict -> the ``/``-joined path of the
+    JAX leaf it maps to (the five modality encoders share their stacked leaf,
+    ``modality_encoders/layers_i/...``)."""
+    paths: dict[str, str] = {}
+    key_of = {}
+    for ours, theirs in SPEC_EMBED_TORCH_KEYS.items():
+        key_of[theirs] = ours
+    fixed = {"linear_embedding_MF.embedding.weight": "embed_mf/embedding",
+             "linear_embedding_MS.embedding.weight": "embed_ms/embedding",
+             "embed_trg.weight": "embed_trg/embedding", "pe_trg.weight": "pe_trg/embedding"}
+    leaf = {"weight": "kernel", "bias": "bias"}
+    for k in sd:
+        if k in fixed:
+            paths[k] = fixed[k]
+            continue
+        parts = k.split(".")
+        head = ".".join(parts[:-1])
+        if head in key_of:
+            paths[k] = f"{key_of[head]}/{leaf[parts[-1]]}"
+            continue
+        top = parts[0]
+        if top in ENCODER_TORCH_PREFIXES or top in ("encoder_cross", "decoder"):
+            root = "modality_encoders" if top in ENCODER_TORCH_PREFIXES else top
+            rest = parts[3:]  # after <top>.layers.<i>
+            sub = rest[0]
+            if sub in ("self_attn", "multihead_attn"):
+                name = "_".join(rest[1:]) if rest[1] == "out_proj" else rest[1]
+            elif sub.startswith("norm"):
+                name = {"weight": "scale", "bias": "bias"}[rest[1]]
+            else:
+                name = leaf[rest[1]]
+            paths[k] = f"{root}/layers_{parts[2]}/{sub}/{name}"
+            continue
+        paths[k] = f"{top}/{leaf[parts[-1]]}"
+    return paths
 
 
 def from_jax_clip_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

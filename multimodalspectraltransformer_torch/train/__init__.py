@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (so far the CLIP tokenizer)."""
+"""Training: the loss, AdamW with the plateau schedule, the train step, the
+loop and its checkpoints; and the CLIP tokenizer."""

@@ -1,0 +1,250 @@
+"""The training loop: epochs, validation, checkpoints, metrics.
+
+Counterpart of the JAX package's ``train/loop.py``: ``run_training`` trains
+on the device-resident dataset (``Loader.device_dataset``, batches gathered
+on the device) when featurization is deterministic, else on host batches
+uploaded by a prefetch thread; applies the warp, jitter and blanking
+transforms on the device; steps the plateau schedule once per epoch; runs
+validation each epoch; saves checkpoints and, on a crash, a parameter
+backup. ``MetricsLogger`` writes the JSONL metrics, ``anneal_weights`` gives
+the annealed loss weights. Data parallelism (``mesh``) and in-training
+generation metrics are not ported yet (ROADMAP section 1).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue as queue_mod
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import pipeline as dp
+from ..models import mmt
+from ..utils.config import MMTConfig
+from ..utils.device import DeviceLike, resolve_device
+from . import checkpoint as ckpt_mod
+from .state import TrainState, create_state, update_plateau
+from .step import (blank_modalities_device, eval_step, fold_generator, jitter_spectra_device,
+                   train_step, warp_spectra_device)
+
+# fold_in tags of the batch transforms' random streams (the JAX package's)
+_WARP_TAG, _JITTER_TAG, _BLANK_TAG = 0x3A7B, 0x7E77, 0x5BD1
+
+
+class MetricsLogger:
+    """JSONL metrics sink: one dict of scalars per line."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self._f = open(path, "a") if path else None
+        self.history: list[dict] = []
+
+    def log(self, record: dict) -> None:
+        record = {k: (float(v) if hasattr(v, "item") or isinstance(v, (int, float)) else v)
+                  for k, v in record.items()}
+        self.history.append(record)
+        if self._f:
+            self._f.write(json.dumps(record) + "\n")
+            self._f.flush()
+
+    def close(self):
+        if self._f:
+            self._f.close()
+            self._f = None
+
+
+class _PrefetchError:
+    """Carrier for a worker-thread exception."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _prefetch(iterator, put_batch, depth: int = 2):
+    """Run ``put_batch`` over ``iterator`` ``depth`` items ahead on a worker
+    thread. A worker exception is raised in the consumer; abandoning the
+    generator stops the worker instead of leaving it blocked on a full
+    queue."""
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
+    END = object()
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.25)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not _put(put_batch(item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - forwarded to the consumer
+            _put(_PrefetchError(e))
+            return
+        _put(END)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is END:
+                return
+            if isinstance(item, _PrefetchError):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()
+
+
+@dataclass
+class TrainResult:
+    state: TrainState
+    train_loss: float
+    val_loss: float
+    steps: int
+    metrics: MetricsLogger
+
+
+def run_training(
+    cfg: MMTConfig,
+    train_loader: dp.Loader,
+    val_loader: Optional[dp.Loader] = None,
+    init_params: Optional[dict[str, torch.Tensor]] = None,
+    mesh=None,
+    metrics_path: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    seed: int = 0,
+    gen_metrics_every: int = 0,
+    max_steps: int = 0,  # 0 = run num_epochs
+    log_every: int = 1,  # every logged step waits for the device
+    device_data: Optional[bool] = None,  # None: the device dataset when it can be made
+    device: DeviceLike = None,
+) -> TrainResult:
+    """Train the MMT on one device (cuda unless asked otherwise), from
+    ``init_params`` (a state dict, e.g. ``import_params_msgpack``'s) or the
+    JAX package's initializers drawn from ``seed``."""
+    if mesh is not None:
+        raise NotImplementedError("data parallelism over a mesh is not ported yet "
+                                  "(ROADMAP section 1, item 3)")
+    if gen_metrics_every:
+        raise NotImplementedError("in-training generation metrics are not ported yet "
+                                  "(ROADMAP section 1, item 5)")
+    dev = resolve_device(device)
+    if init_params is not None:
+        model = mmt.MultimodalTransformer(cfg.model)
+        model.load_state_dict(init_params)  # copies: the caller's tensors stay as they are
+        model = model.to(dev)
+    else:
+        model = mmt.init_model(cfg.model, seed, dev)
+
+    dd = None
+    if device_data or device_data is None:
+        dd = train_loader.device_dataset(dev)
+
+    state = create_state(cfg.train, model)
+    manager = None
+    if checkpoint_dir:
+        manager = ckpt_mod.CheckpointManager(checkpoint_dir, keep=cfg.train.keep_checkpoints,
+                                             save_interval_steps=cfg.train.save_interval_steps)
+        manager.restore(state)
+
+    logger = MetricsLogger(metrics_path)
+    train_loss = float("nan")
+    val_loss = float("nan")
+    step_count = state.step
+    done = bool(max_steps and step_count >= max_steps)  # restored at or over budget
+    # a restored run continues the epoch sequence (clamped so it trains)
+    start_epoch = step_count // max(1, len(train_loader)) if step_count else 0
+    start_epoch = min(start_epoch, max(0, cfg.train.num_epochs - 1))
+    put_batch = lambda b: dp.to_device(b, dev)
+    t = cfg.train
+
+    try:
+        for epoch in range(start_epoch, cfg.train.num_epochs):
+            if done:
+                break
+            if dd is not None:
+                batches = (dp.gather_rows(dd, idx) for idx in train_loader.epoch_row_batches(epoch))
+            else:
+                batches = _prefetch(train_loader.epoch(epoch), put_batch)
+            last_m = None
+            for b in batches:
+                if t.warp_1h_ppm > 0 or t.warp_13c_ppm > 0:
+                    b = warp_spectra_device(b, fold_generator(seed, _WARP_TAG, step_count,
+                                                              device=dev),
+                                            t.warp_1h_ppm, t.warp_13c_ppm, t.jitter_gate_p)
+                if t.jitter_1h_ppm > 0 or t.jitter_13c_ppm > 0:
+                    b = jitter_spectra_device(b, fold_generator(seed, _JITTER_TAG, step_count,
+                                                                device=dev),
+                                              t.jitter_1h_ppm, t.jitter_13c_ppm, t.jitter_gate_p)
+                if t.blank_percentage > 0:
+                    b = blank_modalities_device(b, t.blank_percentage,
+                                                fold_generator(seed, _BLANK_TAG, step_count,
+                                                               device=dev))
+                state, m = train_step(cfg, state, b, seed)
+                last_m = m
+                step_count += 1
+                if step_count % log_every == 0:
+                    train_loss = float(m.loss)
+                    logger.log({"step": step_count, "epoch": epoch, "train_loss": train_loss,
+                                "SMI_loss": m.smi_loss, "FP_loss": m.fp_loss,
+                                "token_accuracy": m.token_accuracy, "grad_norm": m.grad_norm})
+                if manager is not None and manager.should_save(step_count):
+                    manager.save(state, metrics={"loss": float(m.loss)})
+                if max_steps and step_count >= max_steps:
+                    done = True
+                    break
+
+            # the plateau steps once per epoch on the epoch's last loss
+            if last_m is not None:
+                train_loss = float(last_m.loss)
+            if np.isfinite(train_loss):
+                state = update_plateau(cfg.train, state, train_loss)
+
+            if val_loader is not None:
+                losses = [float(eval_step(cfg, model, put_batch(batch)).loss)
+                          for batch in val_loader.epoch(epoch)]
+                if losses:
+                    val_loss = float(np.mean(losses))
+                    logger.log({"step": step_count, "epoch": epoch, "val_loss": val_loss})
+    except Exception:
+        # last-resort backup of the parameters on any training exception
+        if checkpoint_dir:
+            backup = os.path.join(checkpoint_dir, "last_backup_params.msgpack")
+            try:
+                ckpt_mod.export_params_msgpack(model, backup)
+                print(f"run_training: crash backup saved to {backup}")
+            except Exception as be:  # noqa: BLE001 - the original error is re-raised
+                print(f"run_training: crash backup FAILED ({be!r}); no {backup}")
+        raise
+    finally:
+        logger.close()
+
+    if manager is not None:
+        manager.wait()
+        manager.close()
+    return TrainResult(state, train_loss, val_loss, step_count, logger)
+
+
+def anneal_weights(step: int, cfg: MMTConfig) -> tuple[float, float]:
+    """Loss-weight annealing (the reference's ``change_loss_weights``): every
+    ``batch_frequency`` steps weight_MW grows by increment*100 (cap 100) and
+    weight_sgnn by increment*10 (cap 10). Returns (weight_mw, weight_sgnn)."""
+    t = cfg.train
+    if not t.change_loss_weights:
+        return t.weight_mw, t.weight_sgnn
+    bumps = step // max(t.batch_frequency, 1)
+    w_mw = min(100.0, t.weight_mw + bumps * t.increment * 100)
+    w_sgnn = min(10.0, t.weight_sgnn + bumps * t.increment * 10)
+    return w_mw, w_sgnn

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes on the GPU: the port's evaluate_molecules, or its beam
-mode, timed and traced.
+"""Where the time goes on the GPU: the port's evaluate_molecules, its beam
+mode or its train step, timed and traced.
 
     python3 scripts/torch_profile_main_path.py [--mols 8 48] [--out runs/torch_profile]
     python3 scripts/torch_profile_main_path.py --beam [--out runs/torch_profile]
+    python3 scripts/torch_profile_main_path.py --train [--out runs/torch_profile]
 
 Without ``--beam``, for each molecule count: records from
 ``simulate_records(random_corpus(2n, seed=123)[:n])``, the committed phase3
@@ -21,11 +22,16 @@ molecules with seeded uniform spectra, beam 5, 128 steps without early exit,
 bf16. One warm-up call and three timed calls (host clock, each ending when
 the tokens reach the host).
 
-Then one run under torch.profiler: device busy time (the union of kernel
-intervals) over the run's wall time, CUDA kernels launched, and the kernels
-by device time. Prints one JSON line per run and writes
-``<out>/torch_profile_main_path.json`` (``torch_profile_beam.json`` with
-``--beam``). Needs a CUDA device.
+With ``--train``: the train step of ``chip_smoke.py``'s training phase (full
+width from phase3, batch 64 from its device-resident dataset, lr 3e-5), in
+bf16 mixed precision and in fp32: five warm-up steps, then three steps.
+
+Then one run under torch.profiler (three steps with ``--train``): device
+busy time (the union of kernel intervals) over the run's wall time, CUDA
+kernels launched, and the kernels by device time. Prints one JSON line per
+run and writes ``<out>/torch_profile_main_path.json``
+(``torch_profile_beam.json`` with ``--beam``, ``torch_profile_train.json``
+with ``--train``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,7 +72,10 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # device events, without the ranges of user annotations such as the
+    # optimizer's step, which span kernels counted on their own
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -134,10 +143,41 @@ def profile_beam_mode(model, dev, report: dict, reps: int = 3) -> None:
     _emit(report, row)
 
 
+def profile_train(dev, report: dict, steps: int = 3) -> None:
+    import chip_smoke
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig, TrainConfig
+
+    mcfg = ModelConfig()
+    loader, _val, init = chip_smoke.train_data(dev, mcfg)
+    dd = loader.device_dataset(dev)
+    rows = list(loader.epoch_row_batches(0)) + list(loader.epoch_row_batches(1))
+    for name, mixed in (("bf16", True), ("fp32", False)):
+        cfg = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=3e-5, mixed_precision=mixed))
+        model = mmt.MultimodalTransformer(mcfg)
+        model.load_state_dict(init)
+        state = st.create_state(cfg.train, model.to(dev))
+        for idx in rows[:5]:
+            step.train_step(cfg, state, dp.gather_rows(dd, idx))
+
+        def run():
+            for idx in rows[5 : 5 + steps]:
+                step.train_step(cfg, state, dp.gather_rows(dd, idx))
+
+        row, _prof = _profile(run)
+        _emit(report, dict(train=name, steps=steps, batch=loader.batch_size,
+                           cuda_kernels_per_step=row["cuda_kernels"] / steps, **row))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mols", type=int, nargs="+", default=[8, 48])
     ap.add_argument("--beam", action="store_true", help="profile beam mode instead")
+    ap.add_argument("--train", action="store_true", help="profile the train step instead")
     ap.add_argument("--out", default="runs/torch_profile")
     args = ap.parse_args()
 
@@ -154,13 +194,17 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    model = mmt.load_model(PHASE3, ModelConfig(), device=dev)
     report = {"card": card, "runs": []}
-    if args.beam:
-        profile_beam_mode(model, dev, report)
+    if args.train:
+        profile_train(dev, report)
+        name = "torch_profile_train.json"
     else:
-        profile_main_path(model, dev, args.mols, args.out, report)
-    name = "torch_profile_beam.json" if args.beam else "torch_profile_main_path.json"
+        model = mmt.load_model(PHASE3, ModelConfig(), device=dev)
+        if args.beam:
+            profile_beam_mode(model, dev, report)
+        else:
+            profile_main_path(model, dev, args.mols, args.out, report)
+        name = "torch_profile_beam.json" if args.beam else "torch_profile_main_path.json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(report, f, indent=1)
     return 0

@@ -224,3 +224,25 @@ def test_clip_scores_on_gpu_match_cpu(cuda_device, compute_dtype):
         a, b = a.cpu().double(), b.double()
         bound = 1e-4 * b.abs().clamp_min(1.0) if compute_dtype is None else 2.0**-7 * scale
         assert bool(((a - b).abs() <= bound).all()), (a - b).abs().max().item()
+
+
+@pytest.mark.gpu
+def test_train_step_on_gpu_matches_cpu(cuda_device):
+    """One fp32 train step from phase3 (dropout and TF32 off) on the card
+    against the CPU: the loss within 1e-5 relative, the gradients within
+    1e-4 of each leaf's largest magnitude, the parameters within 1e-6 where
+    the gradient is resolved (chip_smoke.py's check 1 says why not
+    everywhere)."""
+    import chip_smoke
+
+    chip_smoke.train_step_card_vs_cpu(cuda_device)
+
+
+@pytest.mark.gpu
+def test_checkpoint_resume_exact_on_gpu(cuda_device):
+    """Three fp32 steps with dropout on, a checkpoint, two more: a state
+    restored from the checkpoint takes the same two steps (parameters and
+    loss within 1e-6)."""
+    import chip_smoke
+
+    chip_smoke.resume_exact(cuda_device)

@@ -1,0 +1,140 @@
+"""The port's Loader, samplers and record helpers against the JAX package's.
+
+Batch orders, batches and the device-resident dataset are compared exactly:
+the port keeps the JAX package's seeds, so nothing but identical arrays is
+expected. The device dataset runs on the CPU here (``device="cpu"``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from multimodalspectraltransformer_torch.data import pipeline as tdp
+from multimodalspectraltransformer_torch.data import samplers as tsamp
+from multimodalspectraltransformer_torch.utils import config as tconfig
+from multimodalspectraltransformer_tpu.data import pipeline as jdp
+from multimodalspectraltransformer_tpu.data import samplers as jsamp
+from multimodalspectraltransformer_tpu.utils.config import ModelConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+MCFG = ModelConfig(num_encoder_layers=2, num_decoder_layers=2, ffn_dim=64)
+TCFG = tconfig.ModelConfig(num_encoder_layers=2, num_decoder_layers=2, ffn_dim=64)
+
+
+def _records(n: int = 21, seed: int = 5):
+    """JAX records and the same records as the port's dataclass; one record
+    that fails featurization."""
+    jrecs = jdp.synthetic_dataset(n, seed=seed)
+    jrecs[4] = dataclasses.replace(jrecs[4], smiles="C1CC")  # unclosed ring
+    return jrecs, [tdp.SampleRecord(**dataclasses.asdict(r)) for r in jrecs]
+
+
+def _assert_batches_equal(a, b):
+    for name, x, y in zip(b.inputs._fields, a.inputs, b.inputs):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
+    np.testing.assert_array_equal(np.asarray(a.trg_tokens), np.asarray(b.trg_tokens))
+    np.testing.assert_array_equal(np.asarray(a.trg_fp), np.asarray(b.trg_fp))
+
+
+def test_synthetic_and_augmented_records_match_jax():
+    jrecs = jdp.synthetic_dataset(12, seed=3)
+    trecs = tdp.synthetic_dataset(12, seed=3)
+    for a, b in zip(jrecs, trecs):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        np.testing.assert_array_equal(da.pop("ir"), db.pop("ir"))
+        assert da == db
+    ja = jdp.augment_records(jrecs, 3, seed=2)
+    ta = tdp.augment_records(trecs, 3, seed=2)
+    assert [(r.sample_id, r.smiles) for r in ja] == [(r.sample_id, r.smiles) for r in ta]
+    assert len(ta) > len(trecs)
+    assert tdp.augment_records(trecs, 1) == trecs
+
+
+@pytest.mark.parametrize("strategy", ["shuffle", "weight_sorted", "tanimoto"])
+@pytest.mark.parametrize("epoch", [0, 3])
+def test_sampler_orders_match_jax(strategy, epoch):
+    smiles = [r.smiles for r in jdp.synthetic_dataset(40, seed=1)] + ["not a smiles"]
+    a = jsamp.epoch_order(strategy, smiles, 8, 7, epoch)
+    b = tsamp.epoch_order(strategy, smiles, 8, 7, epoch)
+    np.testing.assert_array_equal(a, b)
+    assert sorted(b.tolist()) == list(range(len(smiles)))
+
+
+@pytest.mark.parametrize("drop_remainder", [True, False])
+@pytest.mark.parametrize("augment", [1, 2])
+def test_loader_epochs_match_jax(drop_remainder, augment):
+    """Two epochs of host batches, identical to the JAX Loader's; then the
+    device dataset with ``gather_rows`` gives the same batches (the failing
+    record is dropped up front there, so its batches are compared against a
+    Loader over the featurizable records)."""
+    jrecs, trecs = _records()
+    jrecs = jdp.augment_records(jrecs, augment, seed=1)
+    trecs = tdp.augment_records(trecs, augment, seed=1)
+    jopts = jdp.FeaturizeOptions(use_given_smiles_form=augment > 1)
+    topts = tdp.FeaturizeOptions(use_given_smiles_form=augment > 1)
+    jl = jdp.Loader(jrecs, MCFG, batch_size=4, opts=jopts, seed=3, drop_remainder=drop_remainder)
+    tl = tdp.Loader(trecs, TCFG, batch_size=4, opts=topts, seed=3, drop_remainder=drop_remainder)
+    assert len(tl) == len(jl)
+    for epoch in (0, 1):
+        jb, tb = list(jl.epoch(epoch)), list(tl.epoch(epoch))
+        assert len(jb) == len(tb) > 0
+        for a, b in zip(tb, jb):
+            _assert_batches_equal(a, b)
+
+    dd = tl.device_dataset("cpu")
+    assert dd.inputs.src_1h.dtype == torch.float16 and dd.trg_tokens.dtype == torch.uint8
+    jdd = jl.device_dataset()
+    _assert_batches_equal(tdp.TrainBatch(*dd), jax.tree.map(np.asarray, jdd))
+    kept = [r for r in trecs if r.smiles != "C1CC"]
+    ref = tdp.Loader(kept, TCFG, batch_size=4, opts=topts, seed=3, drop_remainder=drop_remainder)
+    for epoch in (0, 1):
+        rows = list(tl.epoch_row_batches(epoch))
+        np.testing.assert_array_equal(
+            np.concatenate(rows), np.concatenate(list(jl.epoch_row_batches(epoch))))
+        host = list(ref.epoch(epoch))
+        assert len(rows) == len(host)
+        for idx, want in zip(rows, host):
+            got = tdp.gather_rows(dd, idx)
+            assert got.inputs.src_1h.dtype == torch.float32 and got.trg_tokens.dtype == torch.int32
+            for x, y in zip(got.inputs, want.inputs):
+                assert np.allclose(x.numpy(), np.asarray(y), atol=2e-3, rtol=1e-3)  # float16 storage
+            np.testing.assert_array_equal(got.trg_tokens.numpy(), want.trg_tokens)
+            np.testing.assert_array_equal(got.trg_fp.numpy(), want.trg_fp)
+
+
+def test_compact_storage_matches_jax_and_gather_restores_it():
+    jrecs, trecs = _records(9)
+    feats = [f for f in (jdp.featurize(r, MCFG) for r in jrecs) if f is not None]
+    jc = jdp.Loader.compact_train_batch(jdp.collate(feats))
+    tc = tdp.Loader.compact_train_batch(tdp.collate(feats))
+    for name, a, b in zip(jc.inputs._fields, tc.inputs, jc.inputs):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    dd = tdp.to_device(tc, "cpu")
+    ref = jax.tree.map(np.asarray, jdp.gather_rows(jax.tree.map(jax.numpy.asarray, jc),
+                                                   jax.numpy.asarray([3, 0, 5])))
+    _assert_batches_equal(tdp.gather_rows(dd, np.array([3, 0, 5])), ref)
+    bad = tdp.collate(feats)._replace(trg_tokens=np.full((len(feats), 64), 300))
+    with pytest.raises(ValueError, match="uint8"):
+        tdp.Loader.compact_train_batch(bad)
+
+
+def test_stochastic_featurization_keeps_the_host_path():
+    _, trecs = _records(8)
+    tl = tdp.Loader(trecs, TCFG, batch_size=4, opts=tdp.FeaturizeOptions(blank_percentage=0.5))
+    assert tl.device_dataset("cpu") is None
+    assert len(list(tl.epoch(0))) == 1
+    with pytest.raises(RuntimeError, match="device_dataset"):
+        next(tl.epoch_row_batches(0))

@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
+from multimodalspectraltransformer_torch import cli
+from multimodalspectraltransformer_torch.data.pipeline import Loader
 from multimodalspectraltransformer_torch.decode import samplers
 from multimodalspectraltransformer_torch.eval import harness
 from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
 from multimodalspectraltransformer_torch.rank import clip, matching
 from multimodalspectraltransformer_torch.sim import factory
-from multimodalspectraltransformer_torch.utils.config import ModelConfig
+from multimodalspectraltransformer_torch.train import loop
+from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
 
 
@@ -38,7 +41,8 @@ PORT_MODULES = [
               "ops.beam_attention", "decode", "decode.functional", "decode.samplers",
               "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching", "rank.clip",
               "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom",
-              "train.contrastive")
+              "data.samplers", "models.layers", "train.contrastive", "train.loss", "train.state",
+              "train.step", "train.loop", "train.checkpoint", "cli")
 ]
 PORT_SCRIPTS = [os.path.join(REPO, "scripts", "torch_accuracy_report.py")]
 
@@ -124,6 +128,11 @@ ENTRY_POINTS = {
         np.ones((2, 2)), np.ones((1, 2, 2)), 2, np.array([2])),
     "assignment_cost": lambda: auction.assignment_cost(np.ones((1, 2, 2))),
     "clip_load_bundle": lambda: clip.load_bundle(os.path.join(REPO, "weights", "clip_r4.msgpack.gz")),
+    "init_model": lambda: mmt.init_model(ModelConfig.small()),
+    "device_dataset": lambda: Loader([], ModelConfig.small(), 1).device_dataset(),
+    "run_training": lambda: loop.run_training(MMTConfig(model=ModelConfig.small()),
+                                              Loader([], ModelConfig.small(), 1)),
+    "cli_train": lambda: cli.main(["train", "--synthetic", "4", "--out", "never-written"]),
 }
 
 
