@@ -45,7 +45,24 @@ Phases, one line of output each (or a few):
              against the CPU; 30 fp32 steps from the port's own init halve the
              loss on one batch of 8; a checkpoint resumed at step 3 continues
              as the uninterrupted run (dropout on); the bf16 msgpack export
-             reads back as the parameters rounded to bf16; every loss finite.
+             reads back as the parameters rounded to bf16; every loss finite;
+7. serve   - the serving console (``serve/app.py``) at full width in a
+             threaded server on 127.0.0.1: phase3 loaded by a job; the main
+             path's 8 molecules simulated; the records, plot and SVG routes;
+             the evaluate route (the main path's decoding, simulated errors)
+             read through its SSE stream, its greedy SMILES and
+             corr_sampling_prob held to a direct ``evaluate_molecules`` call;
+             an evaluate with beam 5 (K3); run_exp_data on 5 of the records
+             written in the AZ format, through the real-data blend; one
+             improvement cycle (5 steps), after which the server serves the
+             fine-tuned model; two jobs in turn and a pending one cancelled.
+             Milliseconds from each POST to its answer, each job's seconds,
+             mols/s through the server against the direct call, the cycle's
+             stages, and the launches of K1-K3 by the server's jobs.
+
+The simulator's GNN weights must load before anything runs: without them
+the factory falls back to its rule teachers and every phase would score
+other spectra.
 
 The timed shapes and the timers come from ``kernel_timing.py``, which
 ``scripts/torch_kernel_times.py`` shares. Each timed kernel reports
@@ -943,6 +960,253 @@ def train_phase(dev, card: str) -> None:
         f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving console
+# ---------------------------------------------------------------------------
+
+class _Http:
+    """A threaded WSGI server of ``app`` on 127.0.0.1 (a free port) in a
+    daemon thread, and the requests the phase sends it."""
+
+    def __init__(self, app):
+        import threading
+        from socketserver import ThreadingMixIn
+        from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
+
+        class Server(ThreadingMixIn, WSGIServer):
+            daemon_threads = True
+
+        class Quiet(WSGIRequestHandler):
+            def log_message(self, *args) -> None:
+                pass
+
+        self.httpd = make_server("127.0.0.1", 0, app, server_class=Server, handler_class=Quiet)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def get(self, path: str) -> tuple[str, bytes]:
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            return r.headers.get("Content-Type", ""), r.read()
+
+    def post(self, path: str, payload: dict, expect: int = 202) -> dict:
+        """POST ``payload``; logs the milliseconds to the response and fails
+        unless its status is ``expect``."""
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, body = r.status, json.loads(r.read())
+        log(f"[serve] POST {path}: {status} in {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        if status != expect:
+            raise AssertionError(f"POST {path} answered {status}, not {expect}: {body}")
+        return body
+
+    def wait(self, job_id: str, timeout: float = 300.0) -> dict:
+        """The job once it has ended, with its result and log; fails unless
+        it is done."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            d = json.loads(self.get(f"/api/jobs/{job_id}?result=1&log=1")[1])
+            if d["status"] not in ("pending", "running"):
+                log(f"[serve] job {d['kind']} {d['status']}: "
+                    f"{d['finished'] - (d['started'] or d['finished']):.3f} s of work")
+                if d["status"] != "done":
+                    raise AssertionError(f"job {d['kind']} ended {d['status']}: {d['error']}")
+                return d
+            time.sleep(0.05)
+        raise AssertionError(f"job {job_id} did not end in {timeout} s")
+
+    def stream(self, job_id: str) -> list[str]:
+        """The job's SSE console, read to its ``[done]`` event."""
+        import urllib.request
+
+        lines = []
+        with urllib.request.urlopen(f"{self.base}/api/jobs/{job_id}/stream", timeout=300) as r:
+            if "text/event-stream" not in r.headers.get("Content-Type", ""):
+                raise AssertionError("the stream route is not an event stream")
+            for raw in r:
+                line = raw.decode().rstrip("\n")
+                if line.startswith("data: "):
+                    lines.append(line[len("data: "):])
+                    if lines[-1] == "[done]":
+                        return lines
+        raise AssertionError(f"the stream of job {job_id} ended without [done]")
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def write_az_example(out_dir: str, records) -> None:
+    """``records`` in the AZ example format that ``load_real_example`` reads:
+    semicolon CSVs per modality and ``real_IR/<sample-id>.csv``."""
+    os.makedirs(os.path.join(out_dir, "real_IR"), exist_ok=True)
+    for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
+        with open(os.path.join(out_dir, f"real_{key}_with_AZ_SMILES_v3.csv"), "w") as f:
+            f.write("sample-id;shifts;SN_Number;AZ_Number;SMILES\n")
+            for i, r in enumerate(records):
+                shifts = [[float(v) for v in p] for p in getattr(r, attr)] if key != "13C" \
+                    else [float(v) for v in r.c13]
+                f.write(f"{r.sample_id};{shifts};SN{i};AZ{i};{r.smiles}\n")
+    for r in records:
+        with open(os.path.join(out_dir, "real_IR", f"{r.sample_id}.csv"), "w") as f:
+            f.write("wavelength,spectra\n")
+            f.writelines(f"{400 + 2 * i},{float(v)}\n" for i, v in enumerate(r.ir))
+
+
+def serve_phase(dev, card: str) -> None:
+    """Phase 7 (see the module docstring)."""
+    import tempfile
+    import urllib.parse
+
+    import torch
+
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.ops import auction as k2
+    from multimodalspectraltransformer_torch.ops import beam_attention as k3
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+    from multimodalspectraltransformer_torch.serve import ServerState, make_app
+    from multimodalspectraltransformer_torch.utils.config import DecodeConfig, ModelConfig
+
+    t_phase = time.perf_counter()
+    counters = {"K1": k1, "K2": k2, "K3": k3}
+    for m in counters.values():
+        m.reset_launches()
+    direct_launches = dict.fromkeys(counters, 0)  # the direct call's, not the server's
+    state = ServerState(ModelConfig(), device=dev)
+    http = _Http(make_app(state))
+    try:
+        job = http.post("/api/model", {"checkpoint": PHASE3})["job"]
+        http.wait(job["job_id"])
+
+        # 2) simulate, then every read-only route on the simulated records
+        smiles = molrandom.random_corpus(16, seed=123)[:8]
+        http.wait(http.post("/api/simulate", {"smiles": smiles})["job_id"])
+        recs = json.loads(http.get("/api/records?source=sim")[1])
+        if len(recs) != len(smiles):
+            raise AssertionError(f"/api/records lists {len(recs)} simulated records, not 8")
+        svgs = [f"/api/plot?source=sim&sample_id={recs[0]['sample_id']}&modality={m}"
+                for m in recs[0]["modalities"]]
+        svgs += [f"/api/molecule.svg?smiles={urllib.parse.quote(smiles[0])}",
+                 f"/api/grid.svg?smiles={urllib.parse.quote(','.join(smiles))}"]
+        for path in svgs:
+            ctype, body = http.get(path)
+            if "svg" not in ctype or not body.startswith(b"<svg"):
+                raise AssertionError(f"GET {path} returned no SVG")
+        log(f"[serve] {len(recs)} records listed; {len(svgs)} SVG routes answered "
+            f"({', '.join(recs[0]['modalities'])} plots, a molecule, a grid)")
+
+        # 3) the evaluate route against a direct call on the same records and model
+        opts = dict(max_len=64, fanout=128, multinom_runs=10, max_temp_rounds=5,
+                    compute_dtype="bfloat16")
+        job = http.post("/api/evaluate", {**opts, "source": "sim", "simulate_errors": True})
+        console = http.stream(job["job_id"])
+        served = http.wait(job["job_id"])
+        with state.lock:
+            records = list(state.sim_records.values())
+        phase3, _ = state.snapshot_model()
+        before = {name: m.launches for name, m in counters.items()}
+        t0 = time.perf_counter()
+        results, summary = harness.evaluate_molecules(records, phase3, DecodeConfig(**opts),
+                                                      simulate_errors=True, device=dev)
+        direct_s = time.perf_counter() - t0
+        for name, m in counters.items():
+            direct_launches[name] += m.launches - before[name]
+        mols = served["result"]["molecules"]
+        served_s = served["finished"] - served["started"]
+        worst = max(abs(m["corr_sampling_prob"] - r.corr_sampling_prob) for m, r in zip(mols, results))
+        same = [m["target"] == r.target and m["greedy"] == r.greedy for m, r in zip(mols, results)]
+        log(f"[serve] evaluate: {len(console) - 1} console lines streamed to [done]; {len(mols)} "
+            f"molecules in {served_s:.3f} s through the server ({len(mols) / served_s:.3f} mols/s) "
+            f"against {direct_s:.3f} s by a direct call ({len(results) / direct_s:.3f} mols/s); "
+            f"greedy equal for {sum(same)} of {len(same)}, corr_sampling_prob within {worst:.2e} "
+            f"(tol 1e-5), candidates {[m['n_candidates'] for m in mols]}")
+        if len(mols) != len(results) or not all(same) or not worst <= 1e-5:
+            raise AssertionError("the evaluate route disagrees with a direct evaluate_molecules call")
+        if min(m["n_candidates"] for m in mols) <= 0:
+            raise AssertionError("a molecule of the evaluate route has no candidates")
+
+        # 4) beam hypotheses in the pools: K3 through the server
+        k3_before = k3.launches
+        job = http.post("/api/evaluate", {**opts, "source": "sim", "simulate_errors": True,
+                                          "beam_candidates": 5})
+        http.wait(job["job_id"])
+        log(f"[serve] evaluate with beam_candidates 5: {k3.launches - k3_before} K3 launches")
+
+        # 5) experimental spectra in the AZ format, through the real-data blend
+        with tempfile.TemporaryDirectory() as tmp:
+            write_az_example(tmp, records[:5])
+            job = http.post("/api/run_exp_data", {**opts, "dir": tmp, "use_real_data": True})
+            exp = http.wait(job["job_id"])["result"]["molecules"]
+        ranked = [len(m["top_ranked"]) for m in exp]
+        log(f"[serve] run_exp_data on 5 AZ-format records: top_ranked lengths {ranked}")
+        if len(exp) != 5 or any("top_ranked" not in m for m in exp):
+            raise AssertionError("run_exp_data did not rank 5 molecules")
+
+        # 6) one improvement cycle, and the server's model swapped
+        job = http.post("/api/improve", {"max_cycles": 1, "steps_per_cycle": 5})
+        cycle = http.wait(job["job_id"])["result"]["cycles"][0]
+        improved, _ = state.snapshot_model()
+        moved = max((a - b).abs().max().item() for a, b in
+                    zip(improved.state_dict().values(), phase3.state_dict().values()))
+        stages = " ".join(f"{k}={v:.3f}" for k, v in cycle["stage_seconds"].items())
+        log(f"[serve] improve: n_augmented {cycle['n_augmented']}, train_loss "
+            f"{cycle['train_loss']:.4f}, stage seconds {stages}; the served model moved by up "
+            f"to {moved:.3e} from phase3")
+        if not (cycle["n_augmented"] > 0 and np.isfinite(cycle["train_loss"])) or \
+                improved is phase3 or not moved > 0:
+            raise AssertionError("the improve job did not fine-tune and swap the served model")
+
+        # 7) the new model serves; one worker runs jobs in turn; a pending job cancels
+        first = http.post("/api/evaluate", {**opts, "source": "sim", "simulate_errors": True})
+        second = http.post("/api/evaluate", {"source": "sim", "max_len": 64, "run_mns": False})
+        third = http.post("/api/evaluate", {"source": "sim", "max_len": 64, "run_mns": False})
+        http.post(f"/api/jobs/{third['job_id']}/cancel", {}, expect=200)
+        first, second = http.wait(first["job_id"]), http.wait(second["job_id"])
+        third = json.loads(http.get(f"/api/jobs/{third['job_id']}")[1])
+        after = first["result"]["summary"]["corr_sampling_prob"]
+        log(f"[serve] after the cycle: corr_sampling_prob {after:.6f} (phase3 "
+            f"{served['result']['summary']['corr_sampling_prob']:.6f}); the second job started "
+            f"{second['started'] - first['finished']:.3f} s after the first ended; the cancelled "
+            f"job is {third['status']}, started {third['started']}")
+        if after == served["result"]["summary"]["corr_sampling_prob"]:
+            raise AssertionError("the evaluate route still serves phase3 after the improve job")
+        if second["started"] < first["finished"] or third["status"] != "cancelled" or \
+                third["started"] is not None:
+            raise AssertionError("the job queue did not run jobs in turn or cancel a pending one")
+    finally:
+        http.close()
+        state.jobs.shutdown()
+
+    launches = {name: m.launches - direct_launches[name] for name, m in counters.items()}
+    log(f"[serve] launches through the server: K1={launches['K1']} K2={launches['K2']} "
+        f"K3={launches['K3']}; the phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the server launched kernel {name} no time")
+
+
+def require_simulator_weights(dev) -> None:
+    """Fail unless the simulator's GNN weights load: without them
+    ``simulate_records`` falls back to the rule teachers (as the JAX package
+    does), and every phase would run on other spectra."""
+    from multimodalspectraltransformer_torch.sim import distill, factory
+
+    missing = [name for name, loaded in (("shift", factory.default_shift_model(dev)),
+                                         ("IR", factory.default_ir_model(dev))) if loaded is None]
+    if missing:
+        raise RuntimeError(f"the simulator's {' and '.join(missing)} GNN weights are missing: "
+                           f"{distill.WEIGHTS_DIR} must hold nmr_shift.msgpack, nmr_shift.json, "
+                           f"ir.msgpack and ir.json")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--save-hsqc", metavar="PATH",
@@ -966,6 +1230,7 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"[device] {kind} x{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; {card}")
+    require_simulator_weights(dev)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ builds the host library while nvcc runs
@@ -982,6 +1247,7 @@ def main() -> int:
     launches, hsqc_cost, (records, model, dcfg, results) = main_path(dev)
     launches["K3"] = beam_path(dev, model, records, dcfg, results)
     train_phase(dev, card)
+    serve_phase(dev, card)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

@@ -1,25 +1,60 @@
 """Command line of the port.
 
 Subcommands:
-  train   train the MMT on spectra CSVs, factory-simulated records
-          (--factory) or synthetic fixtures (--synthetic)
+  simulate  SMILES (csv/txt) -> simulated spectra CSVs (the data factory)
+  train     train the MMT on spectra CSVs, factory-simulated records
+            (--factory) or synthetic fixtures (--synthetic)
+  evaluate  run the full evaluation harness, print a metrics JSON
+  improve   run the self-improvement fine-tuning cycle
+  serve     run the web serving console (job queue + SSE, port 8083)
 
-Example:
+Examples:
+  python -m multimodalspectraltransformer_torch.cli simulate --smiles mols.txt --out simdata/
   python -m multimodalspectraltransformer_torch.cli train --factory 256 --augment 2 \\
       --bf16 --batch-size 64 --lr 3e-5 --params weights/mmt_r4_phase3.msgpack.gz --out run1/
+  python -m multimodalspectraltransformer_torch.cli evaluate --factory 32 \\
+      --params weights/mmt_r4_phase3.msgpack.gz
+  python -m multimodalspectraltransformer_torch.cli serve --params weights/mmt_r4_phase3.msgpack.gz
 
-Runs on ``cuda`` unless ``--device`` says otherwise. Prints the JAX package's
-``cli train`` JSON line (steps, train_loss, val_loss, params) and writes
-``<out>/params.msgpack``, which the JAX package's ``import_params_msgpack``
-reads.
+Every subcommand runs on ``cuda`` unless ``--device`` says otherwise, and
+prints the JSON line of the JAX package's command of the same name. ``train``
+and ``improve`` write ``<out>/params.msgpack``, which the JAX package's
+``import_params_msgpack`` reads.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
+import dataclasses
 import json
 import os
 import sys
+
+
+def _read_smiles(path: str) -> list[str]:
+    """SMILES from a CSV (its ``SMILES`` column, else its first) or a text
+    file (one per non-blank line)."""
+    if path.endswith(".csv"):
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        if not rows:
+            return []
+        col = "SMILES" if "SMILES" in rows[0] else next(iter(rows[0]))
+        return [row[col] for row in rows]
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def cmd_simulate(args) -> int:
+    from .sim import factory
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    records = factory.simulate_records(_read_smiles(args.smiles), device=device)
+    paths = factory.export_reference_csvs(records, args.out, run_id=args.run_id)
+    print(json.dumps({"n_molecules": len(records), "paths": paths}))
+    return 0
 
 
 def _model_cfg(args):
@@ -65,9 +100,7 @@ def cmd_train(args) -> int:
         ),
         data=DataConfig(batch_size=args.batch_size),
     )
-    if args.params and not os.path.exists(args.params):
-        # an explicitly requested checkpoint never falls back to random init
-        raise SystemExit(f"--params {args.params!r} does not exist")
+    _check_params(args)
     records = _load_records(args, device)
     if not records:
         print(json.dumps({"error": "no records loaded"}))
@@ -110,26 +143,145 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _check_params(args) -> None:
+    if args.params and not os.path.exists(args.params):
+        # an explicitly requested checkpoint never falls back to random init
+        raise SystemExit(f"--params {args.params!r} does not exist")
+
+
+def cmd_evaluate(args) -> int:
+    from .eval.harness import evaluate_molecules
+    from .models import mmt
+    from .utils.config import DecodeConfig
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    mcfg = _model_cfg(args)
+    _check_params(args)
+    records = _load_records(args, device)
+    model = (mmt.load_model(args.params, mcfg, device) if args.params
+             else mmt.init_model(mcfg, args.seed, device))
+    dcfg = DecodeConfig(
+        max_len=args.max_len, fanout=args.fanout,
+        multinom_runs=args.multinom_runs, max_temp_rounds=args.rounds,
+        mw_filter=not args.no_mw_filter,
+        beam_candidates=args.beam_candidates, greedy_in_pool=args.mix,
+    )
+    clip_bundle = None
+    if args.clip_params:
+        from .rank import clip as clip_mod
+
+        clip_bundle = clip_mod.load_bundle(args.clip_params, device=device)
+    results, summary = evaluate_molecules(
+        records, model, dcfg, args.seed,
+        simulate_errors=not args.no_sim_errors,
+        clip_bundle=clip_bundle,
+        clip_block=dcfg.multinom_runs if clip_bundle else 0,
+        device=device,
+    )
+    out = dataclasses.asdict(summary)
+    out["top_k_accuracy"] = {str(k): v for k, v in summary.top_k_accuracy.items()}
+    print(json.dumps(out))
+    if args.results_out:
+        import pickle
+
+        with open(args.results_out, "wb") as f:
+            pickle.dump(results, f)
+    return 0
+
+
+def cmd_improve(args) -> int:
+    from .models import mmt
+    from .sim import factory
+    from .train import checkpoint as ckpt
+    from .train.improvement_cycle import ImprovementCycleConfig, run_improvement_cycle
+    from .train.molgen import MolGenConfig
+    from .utils.config import DataConfig, MMTConfig, TrainConfig
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    mcfg = _model_cfg(args)
+    cfg = MMTConfig(
+        model=mcfg,
+        train=TrainConfig(learning_rate=args.lr, num_epochs=1, save_interval_steps=10_000),
+        data=DataConfig(batch_size=args.batch_size),
+    )
+    _check_params(args)
+    targets = factory.simulate_records(_read_smiles(args.smiles), device=device)
+    params = (ckpt.import_params_msgpack(args.params) if args.params
+              else mmt.init_model(mcfg, args.seed, device).state_dict())
+    icfg = ImprovementCycleConfig(
+        max_cycles=args.cycles,
+        ic_threshold=args.threshold,
+        molgen=MolGenConfig(generations_per_target=args.generations),
+        steps_per_cycle=args.steps,
+        include_targets_in_training=args.include_targets,
+        model_neighbors=args.model_neighbors,
+    )
+    os.makedirs(args.out, exist_ok=True)
+    cycles_path = os.path.join(args.out, "cycles.jsonl")
+
+    def row(r) -> dict:
+        return {"cycle": r.cycle, "n_augmented": r.n_augmented, "train_loss": r.train_loss,
+                "corr_sampling_prob": r.summary.corr_sampling_prob,
+                "greedy_exact": r.summary.greedy_exact}
+
+    def persist(r) -> None:
+        # each cycle's point lands as it comes, so a run cut short keeps its curve
+        with open(cycles_path, "a") as f:
+            f.write(json.dumps(row(r)) + "\n")
+
+    new_params, reports = run_improvement_cycle(cfg, targets, params, icfg, seed=args.seed,
+                                                on_cycle=persist, device=device)
+    ckpt.export_params_msgpack(new_params, os.path.join(args.out, "params.msgpack"))
+    print(json.dumps([row(r) for r in reports]))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from .serve import ServerState, serve
+
+    state = ServerState(model_cfg=_model_cfg(args), device=args.device)
+    if args.params:
+        state.load_checkpoint(args.params)
+    serve(port=args.port, state=state)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mmst-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def add_device(sp):
+        sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    def add_common(sp):
+        add_device(sp)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--small", action="store_true", help="2-layer model for quick runs")
+        sp.add_argument("--params", default="", help="params.msgpack(.gz) to load")
+        sp.add_argument("--synthetic", type=int, default=0, help="use N synthetic molecules")
+        sp.add_argument("--factory", type=int, default=0,
+                        help="generate N drug-like molecules and simulate their spectra")
+        sp.add_argument("--factory-seed", type=int, default=-1,
+                        help="corpus seed (default: --seed)")
+        sp.add_argument("--csv-1h", default="")
+        sp.add_argument("--csv-13c", default="")
+        sp.add_argument("--csv-hsqc", default="")
+        sp.add_argument("--csv-cosy", default="")
+        sp.add_argument("--ir-folder", default="")
+        sp.add_argument("--limit", type=int, default=0)
+
+    sp = sub.add_parser("simulate", help="SMILES -> simulated spectra CSVs")
+    add_device(sp)
+    sp.add_argument("--smiles", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--run-id", default="0")
+    sp.set_defaults(fn=cmd_simulate)
+
     sp = sub.add_parser("train", help="train the MMT")
-    sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--small", action="store_true", help="2-layer model for quick runs")
-    sp.add_argument("--params", default="", help="params.msgpack(.gz) to start from")
-    sp.add_argument("--synthetic", type=int, default=0, help="use N synthetic molecules")
-    sp.add_argument("--factory", type=int, default=0,
-                    help="generate N drug-like molecules and simulate their spectra")
-    sp.add_argument("--factory-seed", type=int, default=-1, help="corpus seed (default: --seed)")
-    sp.add_argument("--csv-1h", default="")
-    sp.add_argument("--csv-13c", default="")
-    sp.add_argument("--csv-hsqc", default="")
-    sp.add_argument("--csv-cosy", default="")
-    sp.add_argument("--ir-folder", default="")
-    sp.add_argument("--limit", type=int, default=0)
+    add_common(sp)
     sp.add_argument("--out", required=True)
     sp.add_argument("--lr", type=float, default=1e-4)
     sp.add_argument("--epochs", type=int, default=10)
@@ -164,6 +316,45 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--blank-host", type=float, default=0.0,
                     help="host-side blanking during featurization (forces the host path)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("evaluate", help="run the evaluation harness")
+    add_common(sp)
+    sp.add_argument("--max-len", type=int, default=64)
+    sp.add_argument("--fanout", type=int, default=128)
+    sp.add_argument("--multinom-runs", type=int, default=10)
+    sp.add_argument("--rounds", type=int, default=20)
+    sp.add_argument("--no-mw-filter", action="store_true")
+    sp.add_argument("--no-sim-errors", action="store_true")
+    sp.add_argument("--beam-candidates", type=int, default=0,
+                    help="also pool the top-K beam hypotheses per molecule")
+    sp.add_argument("--clip-params", default="",
+                    help="trained CLIP bundle (msgpack + .json sidecar) to score candidates with")
+    sp.add_argument("--mix", action="store_true",
+                    help="also pool the greedy hypothesis (reference sampling_method='mix')")
+    sp.add_argument("--results-out", default="", help="pickle the per-molecule results there")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("improve", help="self-improvement fine-tuning cycle")
+    add_common(sp)
+    sp.add_argument("--smiles", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--lr", type=float, default=5e-5)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--cycles", type=int, default=5)
+    sp.add_argument("--threshold", type=float, default=0.6)
+    sp.add_argument("--generations", type=int, default=30)
+    sp.add_argument("--steps", type=int, default=0)
+    sp.add_argument("--include-targets", action="store_true")
+    sp.add_argument("--model-neighbors", action="store_true",
+                    help="also sample neighbors from the MMT decoder itself")
+    sp.set_defaults(fn=cmd_improve)
+
+    sp = sub.add_parser("serve", help="web serving console (port 8083)")
+    add_device(sp)
+    sp.add_argument("--port", type=int, default=8083)
+    sp.add_argument("--small", action="store_true")
+    sp.add_argument("--params", default="")
+    sp.set_defaults(fn=cmd_serve)
     return p
 
 

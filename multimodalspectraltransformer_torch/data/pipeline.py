@@ -2,7 +2,8 @@
 
 The port's copy of the JAX package's ``data/pipeline.py``: ``SampleRecord``,
 ``load_spectra_csvs`` (read with the standard library's ``csv``, where the
-JAX package uses pandas), ``bin_ir``, ``_pad_points``, ``featurize``,
+JAX package uses pandas), ``load_real_example`` (the AZ format of
+experimental spectra), ``bin_ir``, ``_pad_points``, ``featurize``,
 ``collate``, the ``Loader`` of training batches with its device-resident
 dataset (``device_dataset``, ``gather_rows``), the synthetic fixtures
 (``synthetic_dataset``) and the SMILES-variant expansion
@@ -106,6 +107,52 @@ def load_spectra_csvs(
             continue
         records.append(SampleRecord(sid, smiles, ir=ir, **fields))
     return records
+
+
+def load_real_example(dir_path: str, use_ir: bool = True, limit: int = 0) -> list[SampleRecord]:
+    """Experimental spectra in the AZ example format (the input of the
+    reference's /run_model_exp_data route): semicolon-separated
+    ``real_{1H,13C,HSQC,COSY}_with_AZ_SMILES_v3.csv`` with a
+    ``sample-id;shifts;SN_Number;AZ_Number;SMILES`` header, and
+    ``real_IR/<sample-id>.csv`` with ``wavelength,spectra`` columns. The
+    SMILES lose their stereo markers, then their explicit ``[H]`` atoms, and
+    are canonicalized (the vocabulary has no [H] token); a row whose shifts
+    do not parse is skipped. Records in the order ids first appear (1H, 13C,
+    HSQC, COSY), the first ``limit`` if set."""
+    from ..chem import cleaning
+
+    by_id: dict[str, SampleRecord] = {}
+    order: list[str] = []
+    for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
+        path = os.path.join(dir_path, f"real_{key}_with_AZ_SMILES_v3.csv")
+        if not os.path.exists(path):
+            continue
+        with open(path, newline="") as f:
+            for row in csv.DictReader(f, delimiter=";"):
+                sid = row["sample-id"].strip()
+                try:
+                    data = _parse_shifts(row["shifts"])
+                except (ValueError, SyntaxError):
+                    continue
+                if key != "13C":
+                    data = [list(p) for p in data]
+                if sid not in by_id:
+                    # stereo first ([C@] -> C restores the implicit H), then
+                    # the explicit [H] atoms
+                    smi = cleaning.remove_stereo(row["SMILES"].strip()).replace("[H]", "")
+                    can = chem.canonicalize(smi)
+                    if can is None:
+                        continue
+                    by_id[sid] = SampleRecord(sid, can)
+                    order.append(sid)
+                setattr(by_id[sid], attr, data)
+    if use_ir:
+        for sid, rec in by_id.items():
+            path = os.path.join(dir_path, "real_IR", f"{sid}.csv")
+            if os.path.exists(path):
+                rec.ir = np.asarray([float(r["spectra"]) for r in _read_rows(path)])
+    recs = [by_id[s] for s in order]
+    return recs[:limit] if limit else recs
 
 
 def bin_ir(raw: np.ndarray, bins: int) -> np.ndarray:

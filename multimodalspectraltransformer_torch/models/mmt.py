@@ -323,11 +323,18 @@ def init_model(cfg: ModelConfig = ModelConfig(), seed: int = 0, device: DeviceLi
     return model.to(dev)
 
 
+def model_from_state_dict(state_dict: dict, cfg: ModelConfig = ModelConfig(),
+                          device: DeviceLike = None) -> MultimodalTransformer:
+    """An eval-mode model on ``device`` (cuda unless asked otherwise) holding a
+    copy of ``state_dict``."""
+    dev = resolve_device(device)
+    model = MultimodalTransformer(cfg)
+    model.load_state_dict(state_dict)
+    return model.eval().to(dev)
+
+
 def load_model(path: str, cfg: ModelConfig = ModelConfig(), device: DeviceLike = None
                ) -> MultimodalTransformer:
     """A committed flax msgpack checkpoint -> an eval-mode model on ``device``
     (cuda unless asked otherwise)."""
-    dev = resolve_device(device)
-    model = MultimodalTransformer(cfg)
-    model.load_state_dict(from_jax_params(read_msgpack(path)))
-    return model.eval().to(dev)
+    return model_from_state_dict(from_jax_params(read_msgpack(path)), cfg, device)

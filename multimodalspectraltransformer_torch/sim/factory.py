@@ -5,10 +5,13 @@ Counterpart of the JAX package's ``sim/factory.py``: filter the SMILES
 the committed GNNs in chunks of 256 molecules padded to 64 nodes (on the
 device), and reconstruct 1H/13C/HSQC/COSY peak lists on the host. Without
 GNN weights the rule teachers (``shift_rules``, ``ir_rules``) are used.
+``export_reference_csvs`` writes records in the reference's CSV layout.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 import sys
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -203,3 +206,35 @@ def simulate_records(
             )
         )
     return records
+
+
+def export_reference_csvs(records: Sequence[SampleRecord], out_dir: str, run_id: str = "0") -> dict[str, str]:
+    """Write the 4 per-modality CSVs in the reference's on-disk format
+    (`data_generation_v15_4.py:745-757`) + per-sample IR CSVs, byte for byte
+    what the JAX package's pandas writer produces: minimal quoting, ``\\n``
+    line ends, floats as numpy prints them, NaN as an empty field."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
+        rows = [[r.smiles, str(getattr(r, attr)), r.sample_id]
+                for r in records if getattr(r, attr) is not None]
+        path = os.path.join(out_dir, f"data_{key}_{run_id}.csv")
+        _write_csv(path, ["SMILES", "shifts", "sample-id"] if rows else [], rows)
+        paths[key] = path
+    ir_dir = os.path.join(out_dir, "IR_data")
+    os.makedirs(ir_dir, exist_ok=True)
+    for r in records:
+        if r.ir is not None:
+            values = np.asarray(r.ir).reshape(-1)
+            rows = [["" if np.isnan(v) else str(v)] if values.dtype.kind == "f" else [str(v)]
+                    for v in values]
+            _write_csv(os.path.join(ir_dir, f"{r.sample_id}.csv"), ["spectra"], rows)
+    paths["IR"] = ir_dir
+    return paths
+
+
+def _write_csv(path: str, header: list, rows: list) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)

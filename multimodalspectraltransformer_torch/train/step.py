@@ -39,11 +39,15 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
+def fold_seed(seed: int, *path: int) -> int:
+    """A 64-bit seed from ``(seed, *path)`` through numpy's SeedSequence: the
+    counterpart of JAX's ``fold_in``."""
+    return int(np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)[0])
+
+
 def fold_generator(seed: int, *path: int, device="cpu") -> torch.Generator:
-    """A generator on ``device`` seeded from ``(seed, *path)`` through numpy's
-    SeedSequence: the counterpart of JAX's ``fold_in``."""
-    s = int(np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(s)
+    """A generator on ``device`` seeded with ``fold_seed(seed, *path)``."""
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, *path))
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

@@ -246,3 +246,40 @@ def test_checkpoint_resume_exact_on_gpu(cuda_device):
     import chip_smoke
 
     chip_smoke.resume_exact(cuda_device)
+
+
+@pytest.mark.gpu
+def test_evaluate_route_on_gpu(cuda_device):
+    """The serving console's evaluate route on the card with phase3 loaded by
+    a job: a simulate job, then an evaluate job with sampling and simulated
+    errors that launches K1 and K2, each molecule's greedy SMILES and
+    corr_sampling_prob (1e-5 relative) equal to a direct
+    ``evaluate_molecules`` call on the same records and model."""
+    import chip_smoke
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.serve import ServerState, make_app
+    from multimodalspectraltransformer_torch.utils.config import DecodeConfig, ModelConfig
+
+    state = ServerState(ModelConfig(), device=cuda_device)
+    http = chip_smoke._Http(make_app(state))
+    try:
+        http.wait(http.post("/api/model", {"checkpoint": chip_smoke.PHASE3})["job"]["job_id"])
+        smiles = ["CC(=O)Nc1ccc(O)cc1", "CCOC(=O)c1ccccc1", "OCC(Cl)c1ccncc1"]
+        http.wait(http.post("/api/simulate", {"smiles": smiles})["job_id"])
+        opts = dict(max_len=64, fanout=16, multinom_runs=4, max_temp_rounds=2)
+        tk1.reset_launches()
+        tk2.reset_launches()
+        job = http.post("/api/evaluate", {**opts, "source": "sim", "simulate_errors": True})
+        served = http.wait(job["job_id"])["result"]["molecules"]
+        assert tk1.launches > 0 and tk2.launches > 0
+    finally:
+        http.close()
+        state.jobs.shutdown()
+    model, _ = state.snapshot_model()
+    with state.lock:
+        records = list(state.sim_records.values())
+    results, _ = harness.evaluate_molecules(records, model, DecodeConfig(**opts),
+                                            simulate_errors=True, device=cuda_device)
+    assert [m["greedy"] for m in served] == [r.greedy for r in results]
+    np.testing.assert_allclose([m["corr_sampling_prob"] for m in served],
+                               [r.corr_sampling_prob for r in results], rtol=1e-5)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from multimodalspectraltransformer_torch import cli
+from multimodalspectraltransformer_torch import cli, serve
 from multimodalspectraltransformer_torch.data.pipeline import Loader
 from multimodalspectraltransformer_torch.decode import samplers
 from multimodalspectraltransformer_torch.eval import harness
@@ -19,7 +19,7 @@ from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
 from multimodalspectraltransformer_torch.rank import clip, matching
 from multimodalspectraltransformer_torch.sim import factory
-from multimodalspectraltransformer_torch.train import loop
+from multimodalspectraltransformer_torch.train import improvement_cycle, loop, molgen
 from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
 
@@ -42,13 +42,16 @@ PORT_MODULES = [
               "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching", "rank.clip",
               "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom",
               "data.samplers", "models.layers", "train.contrastive", "train.loss", "train.state",
-              "train.step", "train.loop", "train.checkpoint", "cli")
+              "train.step", "train.loop", "train.checkpoint", "train.molgen",
+              "train.improvement_cycle", "serve", "serve.app", "serve.jobs", "serve.plots",
+              "serve.svg", "cli")
 ]
-PORT_SCRIPTS = [os.path.join(REPO, "scripts", "torch_accuracy_report.py")]
+PORT_SCRIPTS = [os.path.join(REPO, "scripts", "torch_accuracy_report.py"),
+                os.path.join(REPO, "chip_smoke.py")]
 
 _BLOCKED_IMPORT = r"""
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "ninja", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "ninja", "optax", "orbax", "pandas")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -85,11 +88,12 @@ def test_port_imports_without_jax_or_the_jax_package():
 def test_port_sources_never_name_jax_imports():
     """No source file of the port, chip_smoke.py, the kernel_timing.py it
     shares with scripts/torch_kernel_times.py, or the port's accuracy report
-    has an import of JAX, flax, msgpack or the JAX package (the runtime test
-    above covers the modules it imports; this covers every file)."""
+    has an import of JAX, flax, msgpack, pandas or the JAX package (the
+    runtime test above covers the modules it imports; this covers every
+    file)."""
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|ninja|"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|ninja|pandas|"
                      r"multimodalspectraltransformer_tpu)\b", re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_timing.py",
                                              os.path.join("scripts", "torch_kernel_times.py"))]
@@ -133,6 +137,20 @@ ENTRY_POINTS = {
     "run_training": lambda: loop.run_training(MMTConfig(model=ModelConfig.small()),
                                               Loader([], ModelConfig.small(), 1)),
     "cli_train": lambda: cli.main(["train", "--synthetic", "4", "--out", "never-written"]),
+    "cli_simulate": lambda: cli.main(["simulate", "--smiles", "never-read.txt",
+                                      "--out", "never-written"]),
+    "cli_evaluate": lambda: cli.main(["evaluate", "--synthetic", "2"]),
+    "cli_improve": lambda: cli.main(["improve", "--smiles", "never-read.txt",
+                                     "--out", "never-written"]),
+    "cli_serve": lambda: cli.main(["serve"]),
+    "server_state": lambda: serve.ServerState(),
+    "make_app": lambda: serve.make_app(),
+    "sample_model_neighbors": lambda: molgen.sample_model_neighbors(
+        mmt.MultimodalTransformer(ModelConfig.small()), "CCO"),
+    "sample_model_neighbors_batch": lambda: molgen.sample_model_neighbors_batch(
+        mmt.MultimodalTransformer(ModelConfig.small()), []),
+    "run_improvement_cycle": lambda: improvement_cycle.run_improvement_cycle(
+        MMTConfig(model=ModelConfig.small()), [], {}),
 }
 
 
@@ -222,3 +240,25 @@ def test_beam_attention_checks_its_inputs(bad):
         n_live = 10
     with pytest.raises((ValueError, TypeError)):
         beam_attention.beam_attention(q, kv, bias, n_live)
+
+
+@pytest.mark.parametrize("weights", ["present", "missing"])
+def test_chip_smoke_refuses_the_rule_based_simulator(monkeypatch, tmp_path, weights):
+    """``chip_smoke.py`` fails, naming the weights directory, when the
+    simulator's GNN weights do not load (the factory would fall back to its
+    rule teachers); with the committed weights it goes on."""
+    import functools
+
+    import chip_smoke
+    from multimodalspectraltransformer_torch.sim import distill
+
+    monkeypatch.setattr(factory, "_defaults", {})
+    if weights == "missing":
+        for name in ("load_shift_weights", "load_ir_weights"):
+            monkeypatch.setattr(distill, name,
+                                functools.partial(getattr(distill, name), str(tmp_path / "none")))
+        with pytest.raises(RuntimeError, match="shift and IR GNN weights are missing: .*"
+                                               + os.path.join("sim", "weights")):
+            chip_smoke.require_simulator_weights("cpu")
+    else:
+        chip_smoke.require_simulator_weights("cpu")
