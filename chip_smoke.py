@@ -41,11 +41,16 @@ Phases, one line of output each (or a few):
              precision and in fp32; FLOPs per step (FlopCounterMode) and
              TFLOP/s; ``run_training`` for 40 bf16 steps at lr 3e-5 with
              validation, the per-epoch plateau and checkpoints, first and last
-             loss. Checks: one fp32 step (dropout and TF32 off) on the card
+             loss, and every 10 steps the in-training generation metrics with
+             every auxiliary term live (greedy decodes through K1, whose
+             launches are counted; spectral feedback simulated on the card).
+             Checks: one fp32 step (dropout and TF32 off) on the card
              against the CPU; 30 fp32 steps from the port's own init halve the
              loss on one batch of 8; a checkpoint resumed at step 3 continues
              as the uninterrupted run (dropout on); the bf16 msgpack export
              reads back as the parameters rounded to bf16; every loss finite;
+             ``generation_metrics`` on 8 records in fp32 on the card against
+             the CPU (the same generations, the metrics within 1e-6);
 7. serve   - the serving console (``serve/app.py``) at full width in a
              threaded server on 127.0.0.1: phase3 loaded by a job; the main
              path's 8 molecules simulated; the records, plot and SVG routes;
@@ -58,7 +63,23 @@ Phases, one line of output each (or a few):
              fine-tuned model; two jobs in turn and a pending one cancelled.
              Milliseconds from each POST to its answer, each job's seconds,
              mols/s through the server against the direct call, the cycle's
-             stages, and the launches of K1-K3 by the server's jobs.
+             stages, and the launches of K1-K3 by the server's jobs;
+8. contrastive - the CLIP trainer at clip_r4's width (6 layers, 768 wide)
+             from clip_r4 over the frozen phase3 MMT with r4's recipe (batch
+             256, lr 1e-4, weight decay 1e-3, weight_sorted, dropout 0.1, 64
+             text tokens) on phase 6's factory records plus 384 more, the
+             first 64 held out: ``train_contrastive`` for 6 steps, retrieval
+             R@1/R@5 before and after, the median step time, samples/s,
+             FLOPs (FlopCounterMode), TFLOP/s and peak memory; checks: a
+             tower step (dropout off) at clip_r4's width from the tower's
+             init on the card against the CPU, resume
+             from the ``.state`` snapshot bit-exact, the bundle that
+             ``save_bundle`` wrote scoring the main path's candidates through
+             ``evaluate_molecules``. Then the BLIP trainer at
+             ``QFormerConfig()`` width, batch 32: step time, peak memory,
+             finite losses, and ``lm_generate_greedy`` on 8 molecules, card
+             against CPU, token for token. No kernel of its own: the JAX
+             towers reach no Pallas kernel.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -729,11 +750,23 @@ def train_step_card_vs_cpu(dev, batch_size: int = 8) -> None:
                          {k: v.cpu() for k, v in model.state_dict().items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    compare_steps(f"[train] check 1, one fp32 step from phase3 (batch {batch_size}, TF32 off)",
+                  out, cfg.train.learning_rate)
+
+
+def compare_steps(label: str, out: dict, lr: float) -> None:
+    """Hold a step on the card (``out["card"]``) to the CPU's
+    (``out["cpu"]``), each (loss, gradients, parameters after the step): the
+    loss within 1e-5 relative; each gradient leaf within 1e-4 of its largest
+    magnitude; the parameters within 1e-6 wherever the gradient is resolved
+    (``resolved_gradient``), within 2 lr elsewhere, where under 20% of the
+    elements may lie."""
+    import torch
+
     (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out["card"]
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     grad_err = max(((g_card[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
                    for k, g in g_cpu.items())
-    lr = cfg.train.learning_rate
     worst_resolved = worst = 0.0
     n_all = n_unresolved = 0
     where = ""
@@ -751,13 +784,12 @@ def train_step_card_vs_cpu(dev, batch_size: int = 8) -> None:
         n_unresolved += int((~resolved).sum())
     ok = (loss_rel <= 1e-5 and grad_err <= 1e-4 and worst_resolved <= 1e-6 and worst <= 2 * lr
           and n_unresolved < 0.2 * n_all)
-    log(f"[train] check 1, one fp32 step from phase3 (batch {batch_size}, TF32 off), card vs CPU: "
-        f"loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-5); gradients within "
-        f"{grad_err:.2e} of their leaf's max (tol 1e-4); params max diff {worst_resolved:.2e} where "
-        f"the gradient is resolved{where} (tol 1e-6), {worst:.2e} over all (tol {2 * lr:.0e}, "
-        f"{n_unresolved} of {n_all} unresolved) {'ok' if ok else 'FAIL'}")
+    log(f"{label}, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-5); "
+        f"gradients within {grad_err:.2e} of their leaf's max (tol 1e-4); params max diff "
+        f"{worst_resolved:.2e} where the gradient is resolved{where} (tol 1e-6), {worst:.2e} over "
+        f"all (tol {2 * lr:.0e}, {n_unresolved} of {n_all} unresolved) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("a train step on the card differs from the CPU")
+        raise AssertionError(f"{label}: the step on the card differs from the CPU")
 
 
 def resume_exact(dev) -> None:
@@ -856,7 +888,7 @@ def train_data(dev, mcfg):
     simulated on the card, the last 10% for validation, the rest augmented
     2x with SMILES variants (the recipe that produced phase3),
     batch 64; phase3's parameters. Returns (train loader, validation loader,
-    state dict)."""
+    state dict, the simulated records)."""
     from multimodalspectraltransformer_torch.data import molrandom
     from multimodalspectraltransformer_torch.data import pipeline as dp
     from multimodalspectraltransformer_torch.models import convert
@@ -870,16 +902,62 @@ def train_data(dev, mcfg):
     opts = dp.FeaturizeOptions(use_given_smiles_form=True)
     loader = dp.Loader(train_recs, mcfg, batch_size=64, opts=opts)
     val = dp.Loader(recs[-n_val:], mcfg, batch_size=min(64, n_val), drop_remainder=False)
-    return loader, val, convert.from_jax_params(convert.read_msgpack(PHASE3))
+    return loader, val, convert.from_jax_params(convert.read_msgpack(PHASE3)), recs
 
 
-def train_phase(dev, card: str) -> None:
-    """Phase 6 (see the module docstring)."""
+# every auxiliary term of the generation metrics live (they add to no gradient)
+GEN_TERMS = dict(sgnn_feedback=True, weight_mw=0.1, weight_sgnn=0.05, weight_tanimoto=0.2,
+                 weight_validity=0.2)
+
+
+def generation_metrics_card_vs_cpu(dev, records, n: int = 8, mcfg=None,
+                                   params_path: str = PHASE3) -> None:
+    """``generation_metrics`` on ``n`` records in fp32 (TF32 off), the model
+    at ``mcfg``'s width from ``params_path``, every term live: the card's
+    greedy generations (K1) are the CPU's (plain path) string for string, and
+    every metric agrees within 1e-6 relative (NaN in both where one is)."""
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+    from multimodalspectraltransformer_torch.train import loop
+    from multimodalspectraltransformer_torch.utils.config import (MMTConfig, ModelConfig,
+                                                                  TrainConfig)
+
+    cfg = MMTConfig(model=mcfg or ModelConfig(), train=TrainConfig(**GEN_TERMS))
+    feats = [f for f in (dp.featurize(r, cfg.model) for r in records[:n]) if f is not None]
+    batch = dp.collate(feats)
+    out = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        model = mmt.load_model(params_path, cfg.model, device=d)
+        b = dp.to_device(batch, d)
+        k1.reset_launches()
+        t0 = time.perf_counter()
+        metrics = loop.generation_metrics(model, cfg, b, step=40)
+        secs = time.perf_counter() - t0
+        out[name] = (loop.greedy_generations(model, cfg, b)[0], metrics, secs, k1.launches)
+    (g_cpu, m_cpu, s_cpu, _), (g_card, m_card, s_card, n_k1) = out["cpu"], out["card"]
+    bad = [k for k, v in m_cpu.items()
+           if not (np.isnan(v) and np.isnan(m_card[k]))
+           and not abs(m_card[k] - v) <= 1e-6 * max(abs(v), 1e-12)]
+    same = g_card == g_cpu
+    log(f"[check] generation_metrics on {len(feats)} records (fp32), card (K1: {n_k1} launches, "
+        f"{s_card:.2f} s) vs CPU ({s_cpu:.2f} s): generations {'identical' if same else 'DIFFER'}, "
+        f"metrics {'equal within 1e-6' if not bad else f'DIFFER in {bad}'}: "
+        + ", ".join(f"{k}={v:.6g}" for k, v in m_card.items()))
+    if not same or bad or n_k1 <= 0:
+        raise AssertionError("generation_metrics on the card differ from the CPU")
+
+
+def train_phase(dev, card: str):
+    """Phase 6 (see the module docstring); returns the simulated records."""
     import tempfile
 
     import torch
 
     from multimodalspectraltransformer_torch.models import convert, mmt
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
     from multimodalspectraltransformer_torch.train import checkpoint as ckpt
     from multimodalspectraltransformer_torch.train import loop, step
     from multimodalspectraltransformer_torch.train import state as st
@@ -887,9 +965,10 @@ def train_phase(dev, card: str) -> None:
 
     t_phase = time.perf_counter()
     mcfg = ModelConfig()
-    loader, val, init = train_data(dev, mcfg)
+    loader, val, init, recs = train_data(dev, mcfg)
     bf16 = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=3e-5, mixed_precision=True,
-                                                   num_epochs=100, save_interval_steps=20))
+                                                   num_epochs=100, save_interval_steps=20,
+                                                   **GEN_TERMS))
     fp32 = MMTConfig(model=mcfg, train=TrainConfig(learning_rate=3e-5))
     dd = loader.device_dataset(dev)
     log(f"[train] set-up: 256 molecules simulated, "
@@ -909,12 +988,15 @@ def train_phase(dev, card: str) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
+        k1.reset_launches()
         t0 = time.perf_counter()
         res = loop.run_training(bf16, loader, val_loader=val, init_params=init,
                                 checkpoint_dir=os.path.join(tmp, "ckpt"), max_steps=40, device=dev,
-                                metrics_path=os.path.join(tmp, "metrics.jsonl"))
+                                metrics_path=os.path.join(tmp, "metrics.jsonl"),
+                                gen_metrics_every=10)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        gen_k1 = k1.launches
         hist = [x for x in res.metrics.history if "train_loss" in x]
         vals = [x["val_loss"] for x in res.metrics.history if "val_loss" in x]
         saved = sorted(os.listdir(os.path.join(tmp, "ckpt")))
@@ -929,6 +1011,15 @@ def train_phase(dev, card: str) -> None:
     if res.steps != 40 or len(vals) < 2 or not saved:
         raise AssertionError("run_training did not take 40 steps over several epochs with "
                              "validation and checkpoints")
+    gms = [x for x in res.metrics.history if "gen_validity" in x]
+    for gm in gms:
+        log(f"[train] generation metrics at step {gm['step']:.0f} (batch 64, greedy through K1): "
+            + ", ".join(f"{k}={v:.6g}" for k, v in gm.items() if k != "step"))
+    log(f"[train] launches by the generation metrics in run_training: K1={gen_k1}")
+    if [gm["step"] for gm in gms] != [10, 20, 30, 40] or gen_k1 <= 0 or not all(
+            np.isfinite([gm["sgnn_sim_error"], gm["aux_loss_total"]]).all() for gm in gms):
+        raise AssertionError("run_training did not log finite generation metrics every 10 "
+                             "steps through K1")
     # check 4: the bf16 export reads back as the parameters rounded to bf16
     mismatched = [k for k, v in res.state.model.state_dict().items()
                   if not torch.equal(back[k], v.cpu().to(torch.bfloat16).float())]
@@ -950,6 +1041,7 @@ def train_phase(dev, card: str) -> None:
         raise AssertionError("30 steps on one batch did not halve the loss")
 
     resume_exact(dev)
+    generation_metrics_card_vs_cpu(dev, val.records)
 
     # check 5: every loss finite
     losses = (rows["bf16"]["losses"] + rows["fp32"]["losses"] + overfit
@@ -958,6 +1050,7 @@ def train_phase(dev, card: str) -> None:
         raise AssertionError("a training loss is not finite")
     log(f"[check] check 5: all {len(losses)} training and validation losses finite; the training "
         f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1193,6 +1286,253 @@ def serve_phase(dev, card: str) -> None:
             raise AssertionError(f"the server launched kernel {name} no time")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the contrastive trainers
+# ---------------------------------------------------------------------------
+
+def tower_batches(dev, mmt_cfg, records, ccfg, n: int):
+    """``n`` batches of the trainer's device path (weight-sorted rows of the
+    device dataset, the corpus's text tokenized once): [(inputs, tokens,
+    mask)]."""
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.train import contrastive as con
+
+    loader = dp.Loader(con._drop_truncating_records(records, mmt_cfg.model), mmt_cfg.model,
+                       ccfg.batch_size, order_strategy=ccfg.order_strategy)
+    dd = loader.device_dataset(dev)
+    tk, mk = (torch.from_numpy(x).to(dev)
+              for x in con.clip_tokenize(loader._device_kept_smiles, ccfg.max_text_len))
+    rows, epoch = [], 0
+    while len(rows) < n:
+        rows += list(loader.epoch_row_batches(epoch))
+        epoch += 1
+    out = []
+    for idx in rows[:n]:
+        ia = torch.from_numpy(idx).to(dev).long()
+        out.append((dp.gather_rows(dd, ia).inputs, tk[ia], mk[ia]))
+    return out
+
+
+def time_tower_steps(dev, tower, model, mmt_model, batches, ccfg, warmup: int) -> dict:
+    """The trainer's step on ``batches`` (frozen bf16 encode, the tower's loss
+    with dropout, backward, AdamW), host clock to the loss read back: the
+    median after ``warmup`` steps, samples/s, peak memory, FLOPs of the
+    encode and of the tower step (FlopCounterMode, one more step)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodalspectraltransformer_torch.train import contrastive as con
+    from multimodalspectraltransformer_torch.train.step import step_generator
+
+    opt = con.make_optimizer(con.trained_parameters(model, tower), ccfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, (inputs, toks, mask) in enumerate(batches):
+        t0 = time.perf_counter()
+        enc = con._encode_frozen(mmt_model, inputs)
+        losses.append(float(con.tower_step(model, opt, tower, enc, toks, mask, ccfg.temperature,
+                                           step_generator(0, i))))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    inputs, toks, mask = batches[0]
+    with FlopCounterMode(display=False) as fc:
+        enc = con._encode_frozen(mmt_model, inputs)
+    enc_flops = float(fc.get_total_flops())
+    with FlopCounterMode(display=False) as fc:
+        con.tower_step(model, opt, tower, enc, toks, mask, ccfg.temperature, step_generator(0, 99))
+    tower_flops = float(fc.get_total_flops())
+    ms = float(np.median(times[warmup:])) * 1e3
+    return dict(step_ms=ms, samples_per_s=ccfg.batch_size / ms * 1e3, peak_bytes=peak,
+                enc_flops=enc_flops, tower_flops=tower_flops,
+                tflops_per_s=(enc_flops + tower_flops) / ms * 1e-9, losses=losses,
+                times_ms=[t * 1e3 for t in times])
+
+
+def tower_step_card_vs_cpu(dev, tower, model, enc, toks, mask, lr: float, label: str) -> None:
+    """One tower step from ``model`` (its copies on the CPU and the card),
+    dropout off, on the same float32 encodings: ``compare_steps``."""
+    import copy
+
+    from multimodalspectraltransformer_torch.train import contrastive as con
+
+    ccfg = con.ContrastiveConfig(learning_rate=lr)
+    out = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        m = copy.deepcopy(model).to(d)
+        opt = con.make_optimizer(con.trained_parameters(m, tower), ccfg)
+        loss = con.tower_step(m, opt, tower, tuple(x.to(d) for x in enc), toks.to(d),
+                              mask.to(d), 1.0)
+        out[name] = (float(loss), {k: p.grad.cpu() for k, p in m.named_parameters()
+                                   if p.grad is not None},
+                     {k: v.cpu() for k, v in con.tower_state_dict(m, tower).items()})
+    compare_steps(label, out, lr)
+
+
+def tower_resume_exact(dev, tower, model, mmt_model, batches, ccfg) -> None:
+    """Two steps, ``save_snapshot``, a third; a copy of the starting tower
+    restored with ``load_snapshot`` equals the live one bit for bit, and
+    takes the same third step (dropout on) to the same bits."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.train import contrastive as con
+    from multimodalspectraltransformer_torch.train.step import step_generator
+
+    def step(m, opt, i):
+        inputs, toks, mask = batches[i]
+        return con.tower_step(m, opt, tower, con._encode_frozen(mmt_model, inputs), toks, mask,
+                              ccfg.temperature, step_generator(0, i))
+
+    live = copy.deepcopy(model)
+    opt = con.make_optimizer(con.trained_parameters(live, tower), ccfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{tower}.msgpack.state")
+        for i in range(2):
+            step(live, opt, i)
+        con.save_snapshot(path, live, tower, opt, 2)
+        fresh = copy.deepcopy(model)
+        opt2 = con.make_optimizer(con.trained_parameters(fresh, tower), ccfg)
+        at = con.load_snapshot(path, fresh, tower, opt2)
+    equal = lambda: all(torch.equal(a, b) for a, b in zip(live.state_dict().values(),
+                                                           fresh.state_dict().values()))
+    restored = at == 2 and equal()
+    l_live, l_fresh = step(live, opt, 2), step(fresh, opt2, 2)
+    ok = restored and equal() and torch.equal(l_live, l_fresh)
+    log(f"[contrastive] {tower} resume: the .state snapshot restored at step {at} "
+        f"{'bit-exact' if restored else 'DIFFERS'}; the next step from it "
+        f"{'bit-exact' if ok else 'DIFFERS'} (loss {float(l_live):.6f})")
+    if not ok:
+        raise AssertionError(f"resuming the {tower} trainer from its snapshot is not exact")
+
+
+def contrastive_phase(dev, card: str, phase6_records, main) -> None:
+    """Phase 8 (see the module docstring)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.models import convert
+    from multimodalspectraltransformer_torch.rank import clip, qformer
+    from multimodalspectraltransformer_torch.sim import factory
+    from multimodalspectraltransformer_torch.train import contrastive as con
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
+
+    t_phase = time.perf_counter()
+    more = factory.simulate_records(molrandom.random_corpus(384, seed=3134),
+                                    sample_ids=[f"g{i}" for i in range(384)], device=dev)
+    recs = list(phase6_records) + more
+    heldout, train = recs[:64], recs[64:]
+    mmt_cfg = MMTConfig(model=ModelConfig())
+    phase3 = convert.from_jax_params(convert.read_msgpack(PHASE3))
+    mmt_model = con._encode_model(mmt_cfg.model, phase3, dev)
+    r4, r4_cfg = clip.load_bundle(CLIP_R4, device=dev)
+    ccfg = con.ContrastiveConfig(learning_rate=1e-4, weight_decay=1e-3, batch_size=256,
+                                 max_text_len=64, order_strategy="weight_sorted", max_steps=6,
+                                 save_every=3, log_every=1)
+    log(f"[contrastive] set-up: {len(more)} more factory molecules simulated, {len(train)} "
+        f"training and {len(heldout)} held-out records, clip_r4 ({r4_cfg.text_layers} layers, "
+        f"{r4_cfg.text_hidden} wide, dropout {r4_cfg.dropout}, "
+        f"{sum(p.numel() for p in r4.parameters()) / 1e6:.1f} M parameters) in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    recall = lambda m: con.retrieval_accuracy(m, mmt_cfg, phase3, heldout, "clip",
+                                              batch_size=64, device=dev)
+    fmt = lambda r: " ".join(f"{k}={v:.4f}" for k, v in r.items() if k != "n")
+    before = recall(r4)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "clip.msgpack")
+        t0 = time.perf_counter()
+        model, logger = con.train_contrastive(mmt_cfg, phase3, train, "clip", ccfg,
+                                              tower_cfg=r4_cfg, init_variables=r4.state_dict(),
+                                              checkpoint_path=ck, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [x["clip_loss"] for x in logger.history]
+        files = sorted(os.listdir(tmp))
+        after = recall(model)
+        log(f"[contrastive] train_contrastive clip from clip_r4, batch 256: {len(losses)} steps "
+            f"in {wall:.2f} s (set-up included), losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; wrote {files}")
+        log(f"[contrastive] retrieval on {before['n']} held-out records: before {fmt(before)}; "
+            f"after {fmt(after)}")
+        if len(losses) != 6 or not np.all(np.isfinite(losses)) or files != [
+                "clip.msgpack", "clip.msgpack.state"]:
+            raise AssertionError("train_contrastive did not take 6 finite steps with its snapshot "
+                                 "and export")
+        bundle_path = os.path.join(tmp, "bundle.msgpack")
+        clip.save_bundle(bundle_path, model, r4_cfg)
+        bundle = clip.load_bundle(bundle_path, device=dev)
+    records, main_model, dcfg = main
+    results, summary = harness.evaluate_molecules(records, main_model, dcfg, seed=0,
+                                                  clip_bundle=bundle,
+                                                  clip_block=dcfg.multinom_runs, device=dev)
+    scores = [c.clip_loss for r in results for c in r.candidates]
+    log(f"[check] the saved bundle through evaluate_molecules: {len(scores)} candidates of "
+        f"{summary.n} molecules scored, every CLIP loss finite: {bool(np.isfinite(scores).all())}")
+    if not scores or not np.isfinite(scores).all():
+        raise AssertionError("the trained bundle did not score the candidates")
+
+    batches = tower_batches(dev, mmt_cfg, train, ccfg, 11)
+    r = time_tower_steps(dev, "clip", model, mmt_model, batches, ccfg, warmup=3)
+    log(f"[contrastive] clip step at batch 256 (bf16 frozen encode, fp32 tower, TF32 off): median "
+        f"{r['step_ms']:.3f} ms after 3 warm-up steps (steps {', '.join(f'{t:.1f}' for t in r['times_ms'])} "
+        f"ms), {r['samples_per_s']:.1f} samples/s, {(r['enc_flops'] + r['tower_flops']) / 1e12:.4f} "
+        f"TFLOP a step (encode {r['enc_flops'] / 1e12:.4f}, tower {r['tower_flops'] / 1e12:.4f}), "
+        f"{r['tflops_per_s']:.2f} TFLOP/s ({r['tflops_per_s'] * 1e12 / F32_FLOPS:.1%} of the "
+        f"float32 peak), peak memory {r['peak_bytes'] / 2**30:.3f} GiB; {card}")
+    tower_resume_exact(dev, "clip", model, mmt_model, batches, ccfg)
+    # from the tower's own init at clip_r4's width: from clip_r4 the loss of a
+    # batch of 16 is about 1e-4 and its gradient float32 rounding noise
+    del model, r4
+    inputs, toks, mask = batches[0]
+    enc = tuple(x[:16] for x in con._encode_frozen(mmt_model, inputs))
+    tower_step_card_vs_cpu(dev, "clip", con.make_tower("clip", r4_cfg)[0], enc, toks[:16],
+                           mask[:16], ccfg.learning_rate, "[contrastive] check, one clip tower "
+                           "step at clip_r4 width from init (batch 16, dropout and TF32 off)")
+
+    # the BLIP trainer at QFormerConfig() width, batch 32 (the cli's default)
+    bcfg = dataclasses.replace(ccfg, batch_size=32, max_steps=4, save_every=0)
+    t0 = time.perf_counter()
+    blip, logger = con.train_contrastive(mmt_cfg, phase3, train, "blip", bcfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [x["blip_loss"] for x in logger.history]
+    n_params = sum(p.numel() for p in con.trained_parameters(blip, "blip"))
+    r = time_tower_steps(dev, "blip", blip, mmt_model,
+                         tower_batches(dev, mmt_cfg, train, bcfg, 7), bcfg, warmup=2)
+    log(f"[contrastive] train_contrastive blip (QFormerConfig(): 12 layers, 768 wide, "
+        f"{n_params / 1e6:.1f} M trained parameters), batch 32: {len(losses)} steps in "
+        f"{wall:.2f} s (init included), losses {', '.join(f'{x:.4f}' for x in losses)}; step "
+        f"median {r['step_ms']:.3f} ms after 2 warm-up steps, {r['samples_per_s']:.1f} samples/s, "
+        f"{(r['enc_flops'] + r['tower_flops']) / 1e12:.4f} TFLOP a step, "
+        f"{r['tflops_per_s']:.2f} TFLOP/s, peak memory {r['peak_bytes'] / 2**30:.3f} GiB; {card}")
+    if len(losses) != 4 or not np.all(np.isfinite(losses + r["losses"])):
+        raise AssertionError("the BLIP trainer's losses are not finite")
+    inputs, _, _ = tower_batches(dev, mmt_cfg, heldout, dataclasses.replace(bcfg, batch_size=8),
+                                 1)[0]
+    _, memory, kpm = con._encode_frozen(mmt_model, inputs)
+    blip.eval()
+    t0 = time.perf_counter()
+    g_card = qformer.lm_generate_greedy(blip, memory, kpm, 64)
+    torch.cuda.synchronize()
+    s_card = time.perf_counter() - t0
+    g_cpu = qformer.lm_generate_greedy(copy.deepcopy(blip).cpu(), memory.cpu(), kpm.cpu(), 64)
+    same = torch.equal(g_card.cpu(), g_cpu)
+    log(f"[check] lm_generate_greedy of 8 molecules x 64 steps at QFormerConfig() width, card "
+        f"({s_card:.2f} s) vs CPU: tokens {'identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("lm_generate_greedy on the card differs from the CPU")
+    log(f"[contrastive] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -1246,8 +1586,9 @@ def main() -> int:
     k3_row = check_k3(dev)
     launches, hsqc_cost, (records, model, dcfg, results) = main_path(dev)
     launches["K3"] = beam_path(dev, model, records, dcfg, results)
-    train_phase(dev, card)
+    phase6_records = train_phase(dev, card)
     serve_phase(dev, card)
+    contrastive_phase(dev, card, phase6_records, (records, model, dcfg))
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

@@ -4,6 +4,7 @@ Subcommands:
   simulate  SMILES (csv/txt) -> simulated spectra CSVs (the data factory)
   train     train the MMT on spectra CSVs, factory-simulated records
             (--factory) or synthetic fixtures (--synthetic)
+  train-clip train the CLIP/BLIP contrastive ranking tower against a frozen MMT
   evaluate  run the full evaluation harness, print a metrics JSON
   improve   run the self-improvement fine-tuning cycle
   serve     run the web serving console (job queue + SSE, port 8083)
@@ -15,20 +16,26 @@ Examples:
   python -m multimodalspectraltransformer_torch.cli evaluate --factory 32 \\
       --params weights/mmt_r4_phase3.msgpack.gz
   python -m multimodalspectraltransformer_torch.cli serve --params weights/mmt_r4_phase3.msgpack.gz
+  python -m multimodalspectraltransformer_torch.cli train-clip --factory 1024 --eval-n 64 \
+      --batch-size 256 --lr 1e-4 --params weights/mmt_r4_phase3.msgpack.gz --out clip_run/
 
 Every subcommand runs on ``cuda`` unless ``--device`` says otherwise, and
 prints the JSON line of the JAX package's command of the same name. ``train``
 and ``improve`` write ``<out>/params.msgpack``, which the JAX package's
-``import_params_msgpack`` reads.
+``import_params_msgpack`` reads; ``train-clip`` writes the tower as
+``<out>/<tower>.msgpack`` and, for CLIP, the bundle ``<out>/clip.msgpack``
+with its ``.json``, which ``evaluate --clip-params`` loads.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import json
 import os
+import pickle
 import sys
 
 
@@ -67,17 +74,57 @@ def _load_records(args, device):
     from .data import pipeline as dp
 
     if args.factory:
-        from .data import molrandom
-        from .sim import factory as sim_factory
-
-        fseed = args.factory_seed if args.factory_seed >= 0 else args.seed
-        smiles = molrandom.random_corpus(args.factory, seed=fseed)
-        return sim_factory.simulate_records(smiles, sample_ids=[f"f{i}" for i in range(len(smiles))],
-                                            device=device)
+        return _factory_records(args, device)
     if args.synthetic:
         return dp.synthetic_dataset(args.synthetic, seed=args.seed)
     return dp.load_spectra_csvs(csv_1h=args.csv_1h, csv_13c=args.csv_13c, csv_hsqc=args.csv_hsqc,
                                 csv_cosy=args.csv_cosy, ir_folder=args.ir_folder, limit=args.limit)
+
+
+def _factory_records(args, device):
+    """``--factory N`` molecules simulated, or read from ``--factory-cache``:
+    a pickle that this command wrote, keyed by N and the corpus seed."""
+    from .data import molrandom
+    from .sim import factory as sim_factory
+
+    fseed = args.factory_seed if args.factory_seed >= 0 else args.seed
+    cache = args.factory_cache
+    if cache and os.path.exists(cache):
+        with open(cache, "rb") as f:
+            cached = pickle.load(f)
+        if cached.get("n") != args.factory or cached.get("seed") != fseed:
+            raise SystemExit(f"--factory-cache {cache} was generated with n={cached.get('n')} "
+                             f"seed={cached.get('seed')}, but this run asked for "
+                             f"n={args.factory} seed={fseed}; delete the cache or point "
+                             "--factory-cache elsewhere")
+        recs = cached["records"]
+        if len(recs) > args.factory or len(recs) < args.factory * 0.8:
+            print(f"[warn] --factory-cache {cache} holds {len(recs)} records but its key "
+                  f"asserts n={args.factory}: the cache looks truncated or over-full; delete "
+                  "it to regenerate", file=sys.stderr, flush=True)
+        return recs
+    smiles = molrandom.random_corpus(args.factory, seed=fseed)
+    records = sim_factory.simulate_records(smiles, sample_ids=[f"f{i}" for i in range(len(smiles))],
+                                           device=device)
+    if cache:
+        with open(cache, "wb") as f:
+            pickle.dump({"n": args.factory, "seed": fseed, "records": records}, f)
+    return records
+
+
+@contextlib.contextmanager
+def _feature_cache(path: str):
+    """``MMT_FEATURE_CACHE`` set to ``path`` (when given) for the block."""
+    old = os.environ.get("MMT_FEATURE_CACHE")
+    if path:
+        os.environ["MMT_FEATURE_CACHE"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MMT_FEATURE_CACHE", None)
+        else:
+            os.environ["MMT_FEATURE_CACHE"] = old
 
 
 def cmd_train(args) -> int:
@@ -130,12 +177,14 @@ def cmd_train(args) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     init = ckpt.import_params_msgpack(args.params) if args.params else None
-    result = run_training(
-        cfg, loader, val_loader=val, init_params=init,
-        metrics_path=os.path.join(args.out, "metrics.jsonl"),
-        checkpoint_dir=os.path.join(args.out, "ckpt"),
-        seed=args.seed, max_steps=args.steps, log_every=args.log_every, device=device,
-    )
+    with _feature_cache(args.feature_cache):
+        result = run_training(
+            cfg, loader, val_loader=val, init_params=init,
+            metrics_path=os.path.join(args.out, "metrics.jsonl"),
+            checkpoint_dir=os.path.join(args.out, "ckpt"),
+            seed=args.seed, max_steps=args.steps, gen_metrics_every=args.gen_metrics_every,
+            log_every=args.log_every, device=device,
+        )
     params_path = os.path.join(args.out, "params.msgpack")
     ckpt.export_params_msgpack(result.state.model, params_path)
     print(json.dumps({"steps": result.steps, "train_loss": result.train_loss,
@@ -238,6 +287,64 @@ def cmd_improve(args) -> int:
     return 0
 
 
+def cmd_train_clip(args) -> int:
+    from .models import mmt
+    from .rank import clip as clip_mod
+    from .train import checkpoint as ckpt
+    from .train import contrastive
+    from .utils.config import MMTConfig
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    # an explicit --feature-cache wins; else a "<factory-cache>.featcache"
+    # sidecar (one line: the cache directory)
+    fc = args.feature_cache
+    sidecar = args.factory_cache + ".featcache" if args.factory_cache else ""
+    if not fc and sidecar and os.path.exists(sidecar):
+        with open(sidecar) as f:
+            fc = f.read().strip()
+        print(f"[train-clip] feature cache via sidecar: {fc}", flush=True)
+    mcfg = _model_cfg(args)
+    cfg = MMTConfig(model=mcfg)
+    _check_params(args)
+    records = _load_records(args, device)
+    params = (ckpt.import_params_msgpack(args.params) if args.params
+              else mmt.init_model(mcfg, args.seed, "cpu").state_dict())
+    heldout = []
+    if args.eval_n > 0:
+        heldout, records = records[: args.eval_n], records[args.eval_n :]
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    # a run directory's clip_steps_override file replaces --steps (a driver
+    # whose command line is fixed corrects its step budget through it)
+    steps = args.steps
+    override = os.path.join(args.out, "clip_steps_override") if args.out else ""
+    if override and os.path.exists(override):
+        with open(override) as f:
+            steps = int(f.read().strip())
+        print(f"[train-clip] steps override: {args.steps} -> {steps} ({override})", flush=True)
+    ccfg = contrastive.ContrastiveConfig(learning_rate=args.lr, num_epochs=args.epochs,
+                                         batch_size=args.batch_size, max_steps=steps,
+                                         log_every=args.log_every, save_every=args.save_every)
+    with _feature_cache(fc):
+        model, logger = contrastive.train_contrastive(
+            cfg, params, records, tower=args.tower, ccfg=ccfg,
+            metrics_path=os.path.join(args.out, "metrics.jsonl") if args.out else None,
+            checkpoint_path=os.path.join(args.out, f"{args.tower}.msgpack") if args.out else None,
+            seed=args.seed, device=device)
+    if args.out and args.tower == "clip":
+        clip_mod.save_bundle(os.path.join(args.out, "clip.msgpack"), model, model.cfg)
+    key = f"{args.tower}_loss"
+    last = [r for r in logger.history if key in r]
+    out = {"steps": len(last), "final_loss": last[-1][key] if last else None}
+    if heldout:
+        out["retrieval"] = contrastive.retrieval_accuracy(
+            model, cfg, params, heldout, tower=args.tower, batch_size=args.batch_size,
+            device=device)
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from .serve import ServerState, serve
 
@@ -266,6 +373,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="generate N drug-like molecules and simulate their spectra")
         sp.add_argument("--factory-seed", type=int, default=-1,
                         help="corpus seed (default: --seed)")
+        sp.add_argument("--factory-cache", default="",
+                        help="pickle cache of the factory records (written by this command)")
         sp.add_argument("--csv-1h", default="")
         sp.add_argument("--csv-13c", default="")
         sp.add_argument("--csv-hsqc", default="")
@@ -315,6 +424,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="steps to ramp --ss-prob from 0 to its full value")
     sp.add_argument("--blank-host", type=float, default=0.0,
                     help="host-side blanking during featurization (forces the host path)")
+    sp.add_argument("--gen-metrics-every", type=int, default=0,
+                    help="log greedy generation metrics and the auxiliary loss terms every N "
+                         "steps (0: never)")
+    sp.add_argument("--feature-cache", default="",
+                    help="directory of the featurized-dataset disk cache (MMT_FEATURE_CACHE)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("evaluate", help="run the evaluation harness")
@@ -348,6 +462,25 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--model-neighbors", action="store_true",
                     help="also sample neighbors from the MMT decoder itself")
     sp.set_defaults(fn=cmd_improve)
+
+    sp = sub.add_parser("train-clip", help="train the CLIP/BLIP ranking tower")
+    add_common(sp)
+    sp.add_argument("--tower", choices=("clip", "blip"), default="clip")
+    sp.add_argument("--out", default="")
+    sp.add_argument("--lr", type=float, default=1e-4)
+    sp.add_argument("--epochs", type=int, default=3)
+    sp.add_argument("--steps", type=int, default=0)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--eval-n", type=int, default=0,
+                    help="hold out the first N records and report retrieval R@1/R@5 after "
+                         "training")
+    sp.add_argument("--log-every", type=int, default=50, help="metrics cadence")
+    sp.add_argument("--save-every", type=int, default=500,
+                    help="tower and optimizer snapshot cadence (<out>/<tower>.msgpack.state)")
+    sp.add_argument("--feature-cache", default="",
+                    help="featurized-dataset disk cache directory (MMT_FEATURE_CACHE; else a "
+                         "<factory-cache>.featcache sidecar file names it)")
+    sp.set_defaults(fn=cmd_train_clip)
 
     sp = sub.add_parser("serve", help="web serving console (port 8083)")
     add_device(sp)

@@ -240,6 +240,12 @@ def pollute_hsqc(
     return out
 
 
+# Bump when featurize/collate output changes (keys the on-disk feature cache;
+# refactors that keep the output must not bump it). The JAX package's value:
+# caches are shared between the packages.
+FEATURIZE_SCHEMA_VERSION = 2  # v2: compact storage dtypes (compact_train_batch)
+
+
 def featurize(
     rec: SampleRecord,
     mcfg: ModelConfig,
@@ -463,14 +469,48 @@ class Loader:
         return TrainBatch(MMTBatch(**rep), trg.astype(np.uint8),
                           np.asarray(big.trg_fp).astype(np.int8))
 
-    def _featurize_all(self, max_bytes: int):
+    def features_digest(self) -> str:
+        """Content hash of the featurized form of this dataset, as the JAX
+        package computes it (so either package finds the other's cache): the
+        schema version, the model's static layout, the featurize options'
+        ``repr``, the records' SMILES and spectra."""
+        h = hashlib.sha256()
+        h.update(str(FEATURIZE_SCHEMA_VERSION).encode())
+        m = self.mcfg
+        h.update(repr((m.spectrum_points, m.ir_bins, m.mf_len, m.ms_len,
+                       m.fingerprint_size)).encode())
+        h.update(repr(dataclasses.asdict(self.opts)).encode())
+        h.update(str(len(self.records)).encode())
+        for r in self.records:
+            h.update(r.smiles.encode())
+            for v in (r.h1, r.c13, r.hsqc, r.cosy, r.ir):
+                h.update(b";")
+                if v is not None:
+                    h.update(np.asarray(v, np.float32).tobytes())
+            h.update(b"\n")
+        return h.hexdigest()[:16]
+
+    @staticmethod
+    def _save_features_npz(path: str, big: TrainBatch, kept_idx: np.ndarray) -> None:
+        arrays = {f"inputs_{k}": getattr(big.inputs, k) for k in MMTBatch._fields}
+        arrays["trg_tokens"] = big.trg_tokens
+        arrays["trg_fp"] = big.trg_fp
+        arrays["kept_idx"] = np.asarray(kept_idx, np.int64)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+
+    @staticmethod
+    def _load_features_npz(path: str) -> tuple[TrainBatch, Optional[np.ndarray]]:
+        with np.load(path) as z:
+            inputs = MMTBatch(**{k: z[f"inputs_{k}"] for k in MMTBatch._fields})
+            kept = z["kept_idx"] if "kept_idx" in z.files else None  # older caches: all rows
+            return TrainBatch(inputs, z["trg_tokens"], z["trg_fp"]), kept
+
+    def _featurize_records(self):
         """Featurize every record into one compact numpy batch -> (batch, kept
-        record indices); None (with the reason printed) when featurization is
-        stochastic, nothing featurizes or the batch exceeds ``max_bytes``."""
-        if self._stochastic():
-            print("device_dataset: featurization is stochastic (per-epoch SMILES "
-                  "randomization / blanking / noise); falling back to the host loader")
-            return None
+        record indices); None when nothing featurizes."""
         # bulk chemistry through the threaded native library: canonicalize
         # once, then formula, MW and fingerprint of the canonical forms
         canons = chem.batch_canonicalize([r.smiles for r in self.records])
@@ -492,23 +532,58 @@ class Loader:
             print(f"device_dataset: dropping {len(self.records) - len(feats)} records that "
                   f"failed featurization (keeping the device path with {len(feats)} records)",
                   file=sys.stderr)
-        big = self.compact_train_batch(collate(feats))
+        return self.compact_train_batch(collate(feats)), np.asarray(kept, np.int64)
+
+    def _featurize_all(self, max_bytes: int):
+        """Every record featurized into one compact numpy batch -> (batch, kept
+        record indices); None (with the reason printed) when featurization is
+        stochastic, nothing featurizes or the batch exceeds ``max_bytes``.
+        With ``MMT_FEATURE_CACHE=<dir>`` the batch is read from, or written
+        to, ``<dir>/mmt_features_<features_digest>.npz``."""
+        if self._stochastic():
+            print("device_dataset: featurization is stochastic (per-epoch SMILES "
+                  "randomization / blanking / noise); falling back to the host loader")
+            return None
+        cache_dir = os.environ.get("MMT_FEATURE_CACHE", "")
+        cache_path = None
+        out = None
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+            cache_path = os.path.join(cache_dir, f"mmt_features_{self.features_digest()}.npz")
+            if os.path.exists(cache_path):
+                out = self._load_features_npz(cache_path)
+                print(f"device_dataset: loaded featurized cache {cache_path}")
+        if out is None:
+            out = self._featurize_records()
+            if out is None:
+                return None
+            if cache_path is not None:
+                self._save_features_npz(cache_path, *out)
+                print(f"device_dataset: wrote featurized cache {cache_path}")
+        big, kept = out
+        big = self.compact_train_batch(big)  # older caches hold the float32 form
+        if kept is None:
+            kept = np.arange(len(self.records), dtype=np.int64)
         nbytes = sum(np.asarray(x).nbytes for x in (*big.inputs, big.trg_tokens, big.trg_fp))
         if nbytes > max_bytes:
             print(f"device_dataset: featurized set is {nbytes / (1 << 30):.1f} GiB > cap "
-                  f"{max_bytes / (1 << 30):.1f} GiB; falling back to the host path",
-                  file=sys.stderr)
+                  f"{max_bytes / (1 << 30):.1f} GiB; falling back to the host path (raise "
+                  "MMT_DEVICE_DATASET_GB if it fits the card)", file=sys.stderr)
             return None
-        return big, np.asarray(kept, np.int64)
+        return big, kept
 
     def device_dataset(self, device: DeviceLike = None,
-                       max_bytes: int = 6 << 30) -> Optional[TrainBatch]:
+                       max_bytes: Optional[int] = None) -> Optional[TrainBatch]:
         """Every featurizable record in one compact batch on ``device`` (cuda
         unless asked otherwise); None when featurization is stochastic or the
-        set exceeds ``max_bytes``. Made once and cached."""
+        set exceeds ``max_bytes`` (default ``MMT_DEVICE_DATASET_GB`` GiB, 6
+        when unset). Made once and cached; ``MMT_FEATURE_CACHE`` keeps the
+        featurized arrays on disk (``_featurize_all``)."""
         if self._device_dataset is not None:
             return self._device_dataset
         dev = resolve_device(device)
+        if max_bytes is None:
+            max_bytes = int(float(os.environ.get("MMT_DEVICE_DATASET_GB", "6")) * (1 << 30))
         out = self._featurize_all(max_bytes)
         if out is None:
             return None

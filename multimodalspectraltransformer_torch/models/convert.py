@@ -20,7 +20,10 @@ parameters load in the JAX package's ``import_params_msgpack``.
 
 ``from_jax_clip_params`` does the same for the CLIP ranking tower
 (``rank/clip.py``), whose bundle ``weights/clip_r4.msgpack.gz`` holds float32
-leaves under a top-level ``params`` key.
+leaves under a top-level ``params`` key, and ``from_jax_blip_params`` for the
+BLIP tower (``rank/qformer.py``); ``to_jax_clip_params`` and
+``to_jax_blip_params`` are their inverses, with keys sorted as the JAX
+package's files have them.
 """
 
 from __future__ import annotations
@@ -374,7 +377,8 @@ def _encoder_layer_tree(sd: Mapping, prefix: str) -> dict:
 
 
 def _n_layers(sd: Mapping, prefix: str) -> int:
-    return len({k.split(".")[2] for k in sd if k.startswith(prefix + ".layers.")})
+    head = prefix + ".layers."
+    return len({k[len(head):].split(".")[0] for k in sd if k.startswith(head)})
 
 
 def _stack(trees: list) -> Any:
@@ -456,6 +460,23 @@ def jax_paths(sd: Mapping[str, torch.Tensor]) -> dict[str, str]:
     return paths
 
 
+def _roberta_sd(sd: dict, prefix: str, te: Mapping) -> None:
+    """A JAX ``RobertaStyleEncoder`` subtree -> port keys under ``prefix``."""
+    sd[f"{prefix}.word_embeddings.weight"] = _t(te["word_embeddings"]["embedding"])
+    sd[f"{prefix}.position_embeddings.weight"] = _t(te["position_embeddings"]["embedding"])
+    sd[f"{prefix}.token_type_embedding"] = _t(te["token_type_embedding"])
+    _norm(sd, f"{prefix}.emb_norm", te["emb_norm"])
+    for name, layer in te["encoder"].items():
+        _encoder_layer(sd, f"{prefix}.encoder.layers.{int(name.removeprefix('layers_'))}", layer)
+    _linear(sd, f"{prefix}.pooler", te["pooler"])
+
+
+def _head_sd(sd: dict, prefix: str, p: Mapping) -> None:
+    _linear(sd, f"{prefix}.projection", p["projection"])
+    _linear(sd, f"{prefix}.fc", p["fc"])
+    _norm(sd, f"{prefix}.layer_norm", p["layer_norm"])
+
+
 def from_jax_clip_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX package's ``CLIPRanker`` variables (``{"params": ...}``, as a
     CLIP bundle and flax's ``init`` hold them) -> the float32 state dict of
@@ -463,20 +484,129 @@ def from_jax_clip_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     ``token_type_embedding`` is one [hidden] vector, kept as such."""
     tree = tree["params"]
     sd: dict[str, torch.Tensor] = {}
-    te = tree["text_encoder"]
-    sd["text_encoder.word_embeddings.weight"] = _t(te["word_embeddings"]["embedding"])
-    sd["text_encoder.position_embeddings.weight"] = _t(te["position_embeddings"]["embedding"])
-    sd["text_encoder.token_type_embedding"] = _t(te["token_type_embedding"])
-    _norm(sd, "text_encoder.emb_norm", te["emb_norm"])
-    for name, layer in te["encoder"].items():
-        _encoder_layer(sd, f"text_encoder.encoder.layers.{int(name.removeprefix('layers_'))}", layer)
-    _linear(sd, "text_encoder.pooler", te["pooler"])
+    _roberta_sd(sd, "text_encoder", tree["text_encoder"])
     _linear(sd, "LL1", tree["LL1"])
     for head in ("CB_projection", "MT_projection"):
-        _linear(sd, f"{head}.projection", tree[head]["projection"])
-        _linear(sd, f"{head}.fc", tree[head]["fc"])
-        _norm(sd, f"{head}.layer_norm", tree[head]["layer_norm"])
+        _head_sd(sd, head, tree[head])
     return sd
+
+
+def _sorted(tree: Any) -> Any:
+    """Every dict of ``tree`` with its keys in sorted order: the order of a
+    tree that came out of a jitted JAX function, and so of the files the JAX
+    package writes."""
+    if isinstance(tree, Mapping):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _roberta_tree(sd: Mapping, prefix: str) -> dict:
+    return {
+        "word_embeddings": {"embedding": _np(sd[f"{prefix}.word_embeddings.weight"])},
+        "position_embeddings": {"embedding": _np(sd[f"{prefix}.position_embeddings.weight"])},
+        "token_type_embedding": _np(sd[f"{prefix}.token_type_embedding"]),
+        "emb_norm": _norm_tree(sd, f"{prefix}.emb_norm"),
+        "encoder": {f"layers_{i}": _encoder_layer_tree(sd, f"{prefix}.encoder.layers.{i}")
+                    for i in range(_n_layers(sd, f"{prefix}.encoder"))},
+        "pooler": _dense_tree(sd, f"{prefix}.pooler"),
+    }
+
+
+def _head_tree(sd: Mapping, prefix: str) -> dict:
+    return {"projection": _dense_tree(sd, f"{prefix}.projection"),
+            "fc": _dense_tree(sd, f"{prefix}.fc"),
+            "layer_norm": _norm_tree(sd, f"{prefix}.layer_norm")}
+
+
+def to_jax_clip_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``CLIPRanker`` state dict -> the JAX package's variables
+    ``{"params": ...}`` (float32 numpy leaves, keys sorted as in the JAX
+    package's files). The inverse of ``from_jax_clip_params``."""
+    params = {"text_encoder": _roberta_tree(sd, "text_encoder"), "LL1": _dense_tree(sd, "LL1"),
+              "CB_projection": _head_tree(sd, "CB_projection"),
+              "MT_projection": _head_tree(sd, "MT_projection")}
+    return _sorted({"params": params})
+
+
+# The Q-Former's optional leaves: present in a JAX tree only where a mode that
+# reads them ran at init (text rows, the ITM and LM heads).
+_QFORMER_LAYER_PARTS = {"self_attn": _mha, "cross_attn": _mha, "norm1": _norm, "norm_cross": _norm,
+                        "linear1": _linear, "linear2": _linear, "norm2": _norm,
+                        "linear1_text": _linear, "linear2_text": _linear, "norm2_text": _norm}
+
+
+def qformer_params(tree: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``QFormer`` parameter subtree (whole, or the partial overlay of
+    ``from_hf_bert``) -> the port's ``rank.qformer.QFormer`` keys, each under
+    ``prefix``; only the leaves present are converted."""
+    sd: dict[str, torch.Tensor] = {}
+    if "query_tokens" in tree:
+        sd[f"{prefix}query_tokens"] = _t(tree["query_tokens"])
+    if "text_embeddings" in tree:
+        te = tree["text_embeddings"]
+        sd[f"{prefix}text_embeddings.word_embeddings.weight"] = _t(
+            te["word_embeddings"]["embedding"])
+        sd[f"{prefix}text_embeddings.position_embeddings"] = _t(te["position_embeddings"])
+        _norm(sd, f"{prefix}text_embeddings.norm", te["norm"])
+    for name, layer in tree.items():
+        if name.startswith("layers_"):
+            lp = f"{prefix}layers.{int(name.removeprefix('layers_'))}"
+            for part, p in layer.items():
+                _QFORMER_LAYER_PARTS[part](sd, f"{lp}.{part}", p)
+    return sd
+
+
+def from_jax_blip_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's ``BLIPRanker`` variables (``{"params": ...}``) -> the
+    float32 state dict of the port's ``rank.qformer.BLIPRanker``, with the
+    leaves the tree holds: a tree from ``init`` of the contrastive towers
+    alone lacks the Q-Former's text rows and the ITM and LM heads."""
+    tree = tree["params"]
+    sd = qformer_params(tree["qformer"], "qformer.")
+    _linear(sd, "mmt_proj", tree["mmt_proj"])
+    _roberta_sd(sd, "text_encoder", tree["text_encoder"])
+    _head_sd(sd, "spec_projection", tree["spec_projection"])
+    _head_sd(sd, "text_projection", tree["text_projection"])
+    if "itm_head" in tree:
+        _linear(sd, "itm_head", tree["itm_head"])
+    if "lm_head" in tree:
+        lm = tree["lm_head"]
+        _linear(sd, "lm_head.transform", lm["transform"])
+        _norm(sd, "lm_head.transform_norm", lm["transform_norm"])
+        sd["lm_head.bias"] = _t(lm["bias"])
+    return sd
+
+
+def to_jax_blip_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``BLIPRanker`` state dict (whole, or without the optional
+    leaves) -> the JAX package's variables ``{"params": ...}``, keys sorted.
+    The inverse of ``from_jax_blip_params``."""
+    parts = {"self_attn": _mha_tree, "cross_attn": _mha_tree, "norm1": _norm_tree,
+             "norm_cross": _norm_tree, "linear1": _dense_tree, "linear2": _dense_tree,
+             "norm2": _norm_tree, "linear1_text": _dense_tree, "linear2_text": _dense_tree,
+             "norm2_text": _norm_tree}
+    qf: dict = {"query_tokens": _np(sd["qformer.query_tokens"])}
+    if "qformer.text_embeddings.position_embeddings" in sd:
+        qf["text_embeddings"] = {
+            "word_embeddings": {"embedding": _np(sd["qformer.text_embeddings.word_embeddings.weight"])},
+            "position_embeddings": _np(sd["qformer.text_embeddings.position_embeddings"]),
+            "norm": _norm_tree(sd, "qformer.text_embeddings.norm"),
+        }
+    for i in range(_n_layers(sd, "qformer")):
+        lp = f"qformer.layers.{i}"
+        qf[f"layers_{i}"] = {part: fn(sd, f"{lp}.{part}") for part, fn in parts.items()
+                             if any(k.startswith(f"{lp}.{part}.") for k in sd)}
+    params = {"mmt_proj": _dense_tree(sd, "mmt_proj"), "qformer": qf,
+              "text_encoder": _roberta_tree(sd, "text_encoder"),
+              "spec_projection": _head_tree(sd, "spec_projection"),
+              "text_projection": _head_tree(sd, "text_projection")}
+    if "itm_head.weight" in sd:
+        params["itm_head"] = _dense_tree(sd, "itm_head")
+    if "lm_head.bias" in sd:
+        params["lm_head"] = {"transform": _dense_tree(sd, "lm_head.transform"),
+                             "transform_norm": _norm_tree(sd, "lm_head.transform_norm"),
+                             "bias": _np(sd["lm_head.bias"])}
+    return _sorted({"params": params})
 
 
 def linear_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -95,7 +95,10 @@ class MultiheadAttention(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,  # [Sq, Sk] additive float
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, Sk] bool, True = masked
         gen: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        need_weights: bool = False,
+    ):
+        """-> the attention output [B, Sq, D]; with ``need_weights``, (output,
+        the softmax weights [B, H, Sq, Sk] before dropout)."""
         d, h = self.embed_dim, self.num_heads
         dh = d // h
         w, b = self.in_proj_weight.to(query.dtype), self.in_proj_bias.to(query.dtype)
@@ -116,9 +119,10 @@ class MultiheadAttention(nn.Module):
             scores = scores + attn_mask.to(scores.dtype)
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen)
-        out = (attn @ v).transpose(1, 2).reshape(B, Sq, d)
-        return self.out_proj(out)
+        weights = torch.softmax(scores, dim=-1)
+        attn = dropout(weights, self.dropout, gen)
+        out = self.out_proj((attn @ v).transpose(1, 2).reshape(B, Sq, d))
+        return (out, weights) if need_weights else out
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -152,6 +156,34 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + dropout(sa, self.p, gen))
         y = dropout(self.act(self.linear1(x)), self.p, gen)
         return self.norm2(x + dropout(self.linear2(y), self.p, gen))
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``model`` from ``gen`` with flax's default
+    initializer for its kind: xavier-uniform attention projections,
+    lecun-normal (truncated) Linear weights, normal(1/sqrt(features))
+    embeddings, zero biases, unit LayerNorm scales. Modules visited in
+    ``named_modules`` order; other parameters are left as they are."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, MultiheadAttention):
+            nn.init.xavier_uniform_(mod.in_proj_weight, generator=gen)
+            nn.init.xavier_uniform_(mod.out_proj.weight, generator=gen)
+            mod.in_proj_bias.zero_()
+            mod.out_proj.bias.zero_()
+        elif isinstance(mod, nn.Linear) and not name.endswith("out_proj"):
+            std = (1.0 / mod.in_features) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, std=mod.embedding_dim**-0.5, generator=gen)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    return model
 
 
 def _run_layers(layers, x, args, seeds, remat: bool):

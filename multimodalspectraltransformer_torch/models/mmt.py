@@ -30,8 +30,8 @@ from torch import nn
 from ..utils.config import ModelConfig
 from ..utils.device import DeviceLike, resolve_device
 from .convert import ENCODER_TORCH_PREFIXES, SPEC_EMBED_TORCH_KEYS, from_jax_params, read_msgpack
-from .layers import (Linear, MultiheadAttention, TransformerDecoder, TransformerEncoder,
-                     causal_mask, dropout, make_generator)
+from .layers import (Linear, TransformerDecoder, TransformerEncoder, causal_mask, dropout,
+                     init_like_flax, make_generator)
 
 MODALITY_ORDER: tuple[str, ...] = ("1H", "13C", "HSQC", "COSY", "IR")
 
@@ -290,36 +290,15 @@ def _embed(table: nn.Embedding, ids: torch.Tensor, dt: torch.dtype) -> torch.Ten
     return F.embedding(ids.long(), table.weight.to(dt))
 
 
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
-
-
 @torch.no_grad()
 def init_model(cfg: ModelConfig = ModelConfig(), seed: int = 0, device: DeviceLike = None
                ) -> MultimodalTransformer:
     """A from-scratch model on ``device`` (cuda unless asked otherwise) with
-    the JAX package's initializer for each leaf (flax's defaults):
-    xavier-uniform attention projections, lecun-normal (truncated) Linear
-    weights, normal(1/sqrt(features)) embeddings, zero biases, unit LayerNorm
-    scales. Drawn on the CPU from ``seed``, so every device gets the same
-    weights."""
+    the JAX package's initializer for each leaf (``layers.init_like_flax``).
+    Drawn on the CPU from ``seed``, so every device gets the same weights."""
     dev = resolve_device(device)
     model = MultimodalTransformer(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    for name, mod in model.named_modules():
-        if isinstance(mod, MultiheadAttention):
-            nn.init.xavier_uniform_(mod.in_proj_weight, generator=gen)
-            nn.init.xavier_uniform_(mod.out_proj.weight, generator=gen)
-            mod.in_proj_bias.zero_()
-            mod.out_proj.bias.zero_()
-        elif isinstance(mod, nn.Linear) and not name.endswith("out_proj"):
-            std = (1.0 / mod.in_features) ** 0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
-            mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            nn.init.normal_(mod.weight, std=mod.embedding_dim**-0.5, generator=gen)
-        elif isinstance(mod, nn.LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
+    init_like_flax(model, torch.Generator().manual_seed(seed))
     return model.to(dev)
 
 

@@ -1,4 +1,4 @@
-"""CLIP-style spectrum <-> SMILES contrastive ranking, inference.
+"""CLIP-style spectrum <-> SMILES contrastive ranking.
 
 Counterpart of the JAX package's ``rank/clip.py``: a Roberta-style text tower
 (word + offset position + type embeddings, LayerNorm, a post-LN GELU
@@ -18,24 +18,34 @@ it casts every float variable and the fingerprints to bfloat16 and lets flax
 promote per module: the embedding sum and its LayerNorm run in bfloat16; every
 encoder layer, the pooler, ``LL1`` and the CB head run in float32 on the
 bfloat16-rounded weights; the MT head runs in bfloat16; both embeddings are
-cast to float32 for the loss. Dropout is left out (inference only). The
-tower's matmuls and attention are plain PyTorch: the JAX tower reaches no
-Pallas kernel.
+cast to float32 for the loss. The tower's matmuls and attention are plain
+PyTorch: the JAX tower reaches no Pallas kernel.
+
+Training (``train/contrastive.py``): dropout (``cfg.dropout``) sits where
+flax has it (after the embedding LayerNorm, in every encoder layer, in each
+projection head before its residual) and runs only in ``train()`` mode when
+a ``generator`` is passed; one seed per dropout site is drawn from it, as
+the MMT does. ``from_hf_roberta`` and ``from_torch_clip`` map HuggingFace
+Roberta (ChemBERTa) and reference CLIPModel state dicts onto the port's
+keys; ``save_bundle`` writes the bundle that ``load_bundle`` (and the JAX
+package's) reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from ..models.convert import from_jax_clip_params, read_msgpack
-from ..models.layers import TransformerEncoder, gelu_exact
+from ..models.convert import from_jax_clip_params, read_msgpack, to_jax_clip_params, write_msgpack
+from ..models.layers import TransformerEncoder, dropout, gelu_exact, make_generator
 from ..utils.device import DeviceLike, resolve_device
 
 LN_EPS = 1e-5
@@ -77,6 +87,15 @@ def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return x @ lin.weight.to(x.dtype).T + lin.bias.to(x.dtype)
 
 
+def dropout_seeds(module: nn.Module, p: float, generator: Optional[torch.Generator],
+                  n: int) -> list[Optional[int]]:
+    """``n`` dropout seeds drawn from ``generator`` when ``module`` is in
+    train mode with a rate above 0; else ``n`` Nones (no dropout)."""
+    if generator is None or not module.training or p <= 0.0:
+        return [None] * n
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
+
 class RobertaStyleEncoder(nn.Module):
     """Word + offset position + type embeddings -> LayerNorm -> post-LN GELU
     transformer -> tanh pooler over the first token."""
@@ -89,36 +108,43 @@ class RobertaStyleEncoder(nn.Module):
         self.token_type_embedding = nn.Parameter(torch.zeros(cfg.text_hidden))
         self.emb_norm = nn.LayerNorm(cfg.text_hidden, eps=LN_EPS)
         self.encoder = TransformerEncoder(cfg.text_layers, cfg.text_hidden, cfg.text_heads,
-                                          cfg.text_ffn, LN_EPS, "gelu")
+                                          cfg.text_ffn, LN_EPS, "gelu", cfg.dropout)
         self.pooler = nn.Linear(cfg.text_hidden, cfg.text_hidden)
 
     def forward(self, tokens: torch.Tensor, attention_mask: torch.Tensor,
-                emb_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                emb_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] ids and mask (1 = real token) -> [B, hidden] float32;
-        ``emb_dtype``: the dtype of the embedding sum and its LayerNorm."""
+        ``emb_dtype``: the dtype of the embedding sum and its LayerNorm;
+        ``generator``: dropout's seeds (train mode only)."""
+        seeds = dropout_seeds(self, self.cfg.dropout, generator, 1 + self.cfg.text_layers)
         # Roberta position ids: cumsum over the mask plus the pad-token offset
         positions = torch.cumsum(attention_mask, dim=1) * attention_mask + self.cfg.pad_token_id
         word = self.word_embeddings.weight.to(emb_dtype)[tokens.long()]
         pos = self.position_embeddings.weight.to(emb_dtype)[positions.long()]
         x = word + pos + self.token_type_embedding.to(emb_dtype)
-        x = _layer_norm(x, self.emb_norm).float()
-        x = self.encoder(x, attention_mask == 0)
+        x = _layer_norm(x, self.emb_norm)
+        x = dropout(x, self.cfg.dropout, make_generator(seeds[0], x.device)).float()
+        x = self.encoder(x, attention_mask == 0, seeds=seeds[1:])
         return torch.tanh(self.pooler(x[:, 0, :]))
 
 
 class ProjectionHead(nn.Module):
-    """Linear -> exact GELU -> Linear -> +residual -> LayerNorm, in the dtype
-    of its input."""
+    """Linear -> exact GELU -> Linear -> dropout -> +residual -> LayerNorm, in
+    the dtype of its input."""
 
-    def __init__(self, in_dim: int, projection_dim: int):
+    def __init__(self, in_dim: int, projection_dim: int, p: float = 0.1):
         super().__init__()
+        self.p = p
         self.projection = nn.Linear(in_dim, projection_dim)
         self.fc = nn.Linear(projection_dim, projection_dim)
         self.layer_norm = nn.LayerNorm(projection_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """``seed``: this head's dropout seed (None: no dropout)."""
         projected = _dense(x, self.projection)
         y = _dense(gelu_exact(projected), self.fc)
+        y = dropout(y, self.p, make_generator(seed, x.device) if self.training else None)
         return _layer_norm(y + projected, self.layer_norm)
 
 
@@ -131,20 +157,28 @@ class CLIPRanker(nn.Module):
         self.cfg = cfg
         self.text_encoder = RobertaStyleEncoder(cfg)
         self.LL1 = nn.Linear(cfg.text_hidden, cfg.cb_embedding)
-        self.CB_projection = ProjectionHead(cfg.cb_embedding, cfg.projection_dim)
-        self.MT_projection = ProjectionHead(cfg.mt_embedding, cfg.projection_dim)
+        self.CB_projection = ProjectionHead(cfg.cb_embedding, cfg.projection_dim, cfg.dropout)
+        self.MT_projection = ProjectionHead(cfg.mt_embedding, cfg.projection_dim, cfg.dropout)
 
     def embed_text(self, tokens: torch.Tensor, attention_mask: torch.Tensor,
-                   emb_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        pooled = self.text_encoder(tokens, attention_mask, emb_dtype)
-        return self.CB_projection(_dense(pooled, self.LL1))
+                   emb_dtype: torch.dtype = torch.float32,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pooled = self.text_encoder(tokens, attention_mask, emb_dtype, generator)
+        (seed,) = dropout_seeds(self, self.cfg.dropout, generator, 1)
+        return self.CB_projection(_dense(pooled, self.LL1), seed)
 
-    def embed_spectrum(self, fingerprint: torch.Tensor) -> torch.Tensor:
-        return self.MT_projection(fingerprint)
+    def embed_spectrum(self, fingerprint: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        (seed,) = dropout_seeds(self, self.cfg.dropout, generator, 1)
+        return self.MT_projection(fingerprint, seed)
 
     def forward(self, tokens: torch.Tensor, attention_mask: torch.Tensor,
-                fingerprint: torch.Tensor, emb_dtype: torch.dtype = torch.float32):
-        return self.embed_text(tokens, attention_mask, emb_dtype), self.embed_spectrum(fingerprint)
+                fingerprint: torch.Tensor, emb_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None):
+        """-> (text embeddings, spectrum embeddings); ``generator``: dropout
+        (train mode only)."""
+        return (self.embed_text(tokens, attention_mask, emb_dtype, generator),
+                self.embed_spectrum(fingerprint, generator))
 
 
 class CLIPLossOutput(NamedTuple):
@@ -236,3 +270,71 @@ def load_bundle(path: str, device: DeviceLike = None) -> tuple[CLIPRanker, CLIPC
     model = CLIPRanker(cfg)
     model.load_state_dict(from_jax_clip_params(read_msgpack(path)))
     return model.eval().to(dev), cfg
+
+
+def save_bundle(path: str, model: CLIPRanker, cfg: CLIPConfig) -> None:
+    """Write ``<path>`` (the flax msgpack of ``{"params": ...}``, gzipped
+    for ``.gz``) and ``<path without .gz>.json`` (the CLIPConfig fields):
+    the bundle ``load_bundle`` and the JAX package's ``load_bundle`` read."""
+    write_msgpack(to_jax_clip_params(model.state_dict()), path)
+    base = path[:-3] if path.endswith(".gz") else path
+    with open(base + ".json", "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace Roberta (ChemBERTa) and reference CLIPModel state dicts
+# ---------------------------------------------------------------------------
+
+def _f32(v) -> torch.Tensor:
+    """A state-dict entry (torch tensor or array) as a float32 CPU tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(torch.float32).cpu().contiguous()
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def from_hf_roberta(cfg: CLIPConfig, hf_state: Mapping) -> dict[str, torch.Tensor]:
+    """A ``transformers.RobertaModel`` state dict -> the state dict of
+    ``RobertaStyleEncoder``: the separate query/key/value projections are
+    concatenated into ``in_proj``; the first token-type row is the type
+    embedding."""
+    t = lambda key: _f32(hf_state[key])
+    sd = {
+        "word_embeddings.weight": t("embeddings.word_embeddings.weight"),
+        "position_embeddings.weight": t("embeddings.position_embeddings.weight"),
+        "token_type_embedding": t("embeddings.token_type_embeddings.weight")[0].clone(),
+        "emb_norm.weight": t("embeddings.LayerNorm.weight"),
+        "emb_norm.bias": t("embeddings.LayerNorm.bias"),
+        "pooler.weight": t("pooler.dense.weight"),
+        "pooler.bias": t("pooler.dense.bias"),
+    }
+    for i in range(cfg.text_layers):
+        pre, ours = f"encoder.layer.{i}", f"encoder.layers.{i}"
+        att = f"{pre}.attention.self"
+        sd[f"{ours}.self_attn.in_proj_weight"] = torch.cat(
+            [t(f"{att}.{x}.weight") for x in ("query", "key", "value")])
+        sd[f"{ours}.self_attn.in_proj_bias"] = torch.cat(
+            [t(f"{att}.{x}.bias") for x in ("query", "key", "value")])
+        for theirs, mine in (("attention.output.dense", "self_attn.out_proj"),
+                             ("attention.output.LayerNorm", "norm1"),
+                             ("intermediate.dense", "linear1"), ("output.dense", "linear2"),
+                             ("output.LayerNorm", "norm2")):
+            sd[f"{ours}.{mine}.weight"] = t(f"{pre}.{theirs}.weight")
+            sd[f"{ours}.{mine}.bias"] = t(f"{pre}.{theirs}.bias")
+    return sd
+
+
+def from_torch_clip(cfg: CLIPConfig, sd: Mapping) -> dict[str, torch.Tensor]:
+    """A saved reference CLIPModel state dict (``CB_model.chemberta`` the
+    RobertaModel, ``CB_model.LL1``, ``CB_projection``, ``MT_projection``) ->
+    the state dict of ``CLIPRanker``."""
+    prefix = "CB_model.chemberta."
+    out = {f"text_encoder.{k}": v for k, v in from_hf_roberta(
+        cfg, {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}).items()}
+    out["LL1.weight"] = _f32(sd["CB_model.LL1.weight"])
+    out["LL1.bias"] = _f32(sd["CB_model.LL1.bias"])
+    for head in ("CB_projection", "MT_projection"):
+        for part in ("projection", "fc", "layer_norm"):
+            for leaf in ("weight", "bias"):
+                out[f"{head}.{part}.{leaf}"] = _f32(sd[f"{head}.{part}.{leaf}"])
+    return out

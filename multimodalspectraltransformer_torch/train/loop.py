@@ -6,9 +6,12 @@ on the device) when featurization is deterministic, else on host batches
 uploaded by a prefetch thread; applies the warp, jitter and blanking
 transforms on the device; steps the plateau schedule once per epoch; runs
 validation each epoch; saves checkpoints and, on a crash, a parameter
-backup. ``MetricsLogger`` writes the JSONL metrics, ``anneal_weights`` gives
-the annealed loss weights. Data parallelism (``mesh``) and in-training
-generation metrics are not ported yet (ROADMAP section 1).
+backup; every ``gen_metrics_every`` steps, greedy-decodes the step's batch
+(kernel K1 on the card) and logs ``generation_metrics``: validity,
+tanimoto, exact match and the gradient-free auxiliary loss terms (MW,
+spectral feedback, tanimoto, validity). ``MetricsLogger`` writes the JSONL
+metrics, ``anneal_weights`` gives the annealed loss weights. Data
+parallelism (``mesh``) is not ported yet (ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -23,8 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..chem import api as chem
 from ..data import pipeline as dp
+from ..decode import samplers
 from ..models import mmt
+from ..rank import matching
+from ..sim import factory as sim_factory
+from ..utils import vocab
 from ..utils.config import MMTConfig
 from ..utils.device import DeviceLike, resolve_device
 from . import checkpoint as ckpt_mod
@@ -136,10 +144,7 @@ def run_training(
     JAX package's initializers drawn from ``seed``."""
     if mesh is not None:
         raise NotImplementedError("data parallelism over a mesh is not ported yet "
-                                  "(ROADMAP section 1, item 3)")
-    if gen_metrics_every:
-        raise NotImplementedError("in-training generation metrics are not ported yet "
-                                  "(ROADMAP section 1, item 5)")
+                                  "(ROADMAP section 1)")
     dev = resolve_device(device)
     if init_params is not None:
         model = mmt.MultimodalTransformer(cfg.model)
@@ -202,6 +207,9 @@ def run_training(
                                 "token_accuracy": m.token_accuracy, "grad_norm": m.grad_norm})
                 if manager is not None and manager.should_save(step_count):
                     manager.save(state, metrics={"loss": float(m.loss)})
+                if gen_metrics_every and step_count % gen_metrics_every == 0:
+                    logger.log({"step": step_count,
+                                **generation_metrics(model, cfg, b, step_count)})
                 if max_steps and step_count >= max_steps:
                     done = True
                     break
@@ -248,3 +256,92 @@ def anneal_weights(step: int, cfg: MMTConfig) -> tuple[float, float]:
     w_mw = min(100.0, t.weight_mw + bumps * t.increment * 100)
     w_sgnn = min(10.0, t.weight_sgnn + bumps * t.increment * 10)
     return w_mw, w_sgnn
+
+
+def greedy_generations(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: dp.TrainBatch
+                       ) -> tuple[list[str], list[str]]:
+    """The batch's greedy decodes (``spectrum_points`` steps, the model's
+    dtype; kernel K1 on the card) and its target SMILES."""
+    enc = model.encode(batch.inputs)
+    res = samplers.greedy_decode(model.state_dict(), cfg.model, enc.memory,
+                                 enc.memory_key_padding_mask, 1.0, cfg.model.spectrum_points,
+                                 device=enc.memory.device)
+    gen = vocab.batch_ids_to_smiles(res.tokens.cpu().numpy())
+    tgt = [vocab.ids_to_smiles(t[1:]) for t in np.asarray(torch.as_tensor(batch.trg_tokens).cpu())]
+    return gen, tgt
+
+
+def generation_metrics(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: dp.TrainBatch,
+                       step: int = 0) -> dict:
+    """In-training generation metrics and the reference's gradient-free
+    auxiliary loss terms, on the batch's device: greedy validity, mean
+    tanimoto over the valid generations, exact match; the min-max-normalized
+    MW MSE over valid generations; the spectral feedback error (with
+    ``sgnn_feedback``); the annealed weights and ``aux_loss_total``, the
+    weighted sum the reference adds to its loss as a plain number."""
+    gen, tgt = greedy_generations(model, cfg, batch)
+    valid_mask = chem.batch_is_valid(gen)
+    validity = float(np.mean(valid_mask)) if len(gen) else 0.0
+    tanis = [chem.tanimoto(g, t) or 0.0 for g, t, ok in zip(gen, tgt, valid_mask) if ok]
+    tanimoto_mean = float(np.mean(tanis)) if tanis else 0.0
+
+    t = cfg.train
+    gen_w = chem.batch_exact_mol_wt([g for g, ok in zip(gen, valid_mask) if ok])
+    trg_w = chem.batch_exact_mol_wt([s for s, ok in zip(tgt, valid_mask) if ok])
+    pair_ok = ~(np.isnan(gen_w) | np.isnan(trg_w))
+    mw_loss = 0.0
+    if pair_ok.any():
+        gw, tw = gen_w[pair_ok], trg_w[pair_ok]
+        lo = min(gw.min(), t.train_weight_min if t.train_weight_min is not None else gw.min())
+        hi = max(gw.max(), t.train_weight_max if t.train_weight_max is not None else gw.max())
+        span = max(hi - lo, 1e-9)
+        mw_loss = float(np.mean(((gw - lo) / span - (tw - lo) / span) ** 2))
+
+    sgnn_error = float("nan")
+    if t.sgnn_feedback:
+        sgnn_error = spectral_feedback_error(gen, batch, valid_mask)
+
+    w_mw, w_sgnn = anneal_weights(step, cfg)
+    aux_total = (w_mw * mw_loss + (w_sgnn * sgnn_error if np.isfinite(sgnn_error) else 0.0)
+                 + t.weight_tanimoto * (1.0 - tanimoto_mean)
+                 + t.weight_validity * (1.0 - validity))
+    return {
+        "gen_validity": validity,
+        "gen_tanimoto_mean": tanimoto_mean,
+        "gen_exact": float(np.mean([chem.exact_match(g, s) for g, s in zip(gen, tgt)])),
+        "MW_loss": mw_loss,
+        "sgnn_sim_error": sgnn_error,
+        "weight_MW": w_mw,
+        "weight_sgnn": w_sgnn,
+        "aux_loss_total": float(aux_total),
+    }
+
+
+def spectral_feedback_error(gen: list[str], batch: dp.TrainBatch, valid_mask) -> float:
+    """The spectral feedback term: the HSQC of the valid generations,
+    simulated in one ``simulate_records`` call without IR on the batch's
+    device, each scored (``hung_dist_nn``, mean) against the batch's HSQC
+    input un-normalized (H*10, C*200); the mean over scored molecules, NaN
+    when none is."""
+    src = torch.as_tensor(batch.inputs.src_hsqc)
+    src_hsqc = src.cpu().numpy()  # [B, P, 2] (H/10, C/200)
+    idxs = [i for i, ok in enumerate(valid_mask) if ok]
+    if not idxs:
+        return float("nan")
+    recs = sim_factory.simulate_records([gen[i] for i in idxs], sample_ids=[str(i) for i in idxs],
+                                        with_ir=False, device=src.device)
+    by_id = {r.sample_id: r for r in recs}
+    errors = []
+    for i in idxs:
+        rec = by_id.get(str(i))
+        if rec is None or not rec.hsqc:
+            continue
+        live = ~(src_hsqc[i] == 0).all(axis=1)
+        if not live.any():
+            continue
+        query = np.stack([src_hsqc[i][live, 0] * 10.0, src_hsqc[i][live, 1] * 200.0], axis=1)
+        err = matching.spectral_error(query, np.asarray(rec.hsqc, dtype=np.float64),
+                                      mode="hung_dist_nn", error="avg")
+        if np.isfinite(err):
+            errors.append(err)
+    return float(np.mean(errors)) if errors else float("nan")

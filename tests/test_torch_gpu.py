@@ -283,3 +283,83 @@ def test_evaluate_route_on_gpu(cuda_device):
     assert [m["greedy"] for m in served] == [r.greedy for r in results]
     np.testing.assert_allclose([m["corr_sampling_prob"] for m in served],
                                [r.corr_sampling_prob for r in results], rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tower", ["clip", "blip"])
+def test_tower_step_on_gpu_matches_cpu(cuda_device, tower):
+    """One contrastive tower step (dropout off, TF32 off) from the same
+    tower and float32 encodings on the card and on the CPU: the loss within
+    1e-5 relative, the gradients within 1e-4 of each leaf's largest
+    magnitude, the parameters within 1e-6 where the gradient is resolved
+    (chip_smoke.py's ``compare_steps``)."""
+    import chip_smoke
+    from multimodalspectraltransformer_torch.rank import qformer as tq
+    from multimodalspectraltransformer_torch.train import contrastive as tcon
+
+    cfg = (tclip.CLIPConfig(text_layers=2, text_heads=4, text_hidden=128, text_ffn=256,
+                            cb_embedding=96, projection_dim=64) if tower == "clip"
+           else tq.QFormerConfig(hidden=128, num_heads=4, ffn_dim=256, num_layers=4,
+                                 num_queries=8, encoder_width=128, projection_dim=64))
+    model = tcon.make_tower(tower, cfg)[0]
+    gen = torch.Generator().manual_seed(3)
+    B, S = 16, 40
+    kpm = torch.zeros(B, S, dtype=torch.bool)
+    kpm[3, 30:] = True
+    enc = (torch.randn(B, 512, generator=gen), torch.randn(B, S, 128, generator=gen), kpm)
+    toks = torch.randint(4, 43, (B, 32), generator=gen)
+    mask = torch.ones(B, 32, dtype=torch.long)
+    mask[5, 20:] = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        chip_smoke.tower_step_card_vs_cpu(cuda_device, tower, model, enc, toks, mask, 1e-4,
+                                          f"{tower} tower step")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_lm_generate_greedy_on_gpu_matches_cpu(cuda_device):
+    """The Q-Former's cached greedy generation on the card gives the CPU's
+    tokens (fp32, TF32 off)."""
+    import copy
+
+    from multimodalspectraltransformer_torch.rank import qformer as tq
+    from multimodalspectraltransformer_torch.train import contrastive as tcon
+
+    cfg = tq.QFormerConfig(hidden=128, num_heads=4, ffn_dim=256, num_layers=4, num_queries=8,
+                           encoder_width=128, projection_dim=64)
+    model = tcon.make_tower("blip", cfg)[0].eval()
+    gen = torch.Generator().manual_seed(4)
+    memory = torch.randn(8, 40, 128, generator=gen)
+    kpm = torch.zeros(8, 40, dtype=torch.bool)
+    kpm[2, 25:] = True
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = tq.lm_generate_greedy(copy.deepcopy(model).to(cuda_device),
+                                     memory.to(cuda_device), kpm.to(cuda_device), 32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = tq.lm_generate_greedy(model, memory, kpm, 32)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_generation_metrics_on_gpu_match_cpu(cuda_device):
+    """``generation_metrics`` from phase3 in fp32 on 8 factory molecules: the
+    card's greedy generations (K1) are the CPU's, string for string, and
+    every metric, the spectral feedback term included, within 1e-6
+    relative (chip_smoke.py's check)."""
+    import chip_smoke
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.sim import factory
+
+    records = factory.simulate_records(molrandom.random_corpus(8, seed=31), device=cuda_device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        chip_smoke.generation_metrics_card_vs_cpu(cuda_device, records)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

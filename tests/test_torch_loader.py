@@ -138,3 +138,69 @@ def test_stochastic_featurization_keeps_the_host_path():
     assert len(list(tl.epoch(0))) == 1
     with pytest.raises(RuntimeError, match="device_dataset"):
         next(tl.epoch_row_batches(0))
+
+
+# ---------------------------------------------------------------------------
+# the featurized-dataset disk cache (MMT_FEATURE_CACHE) and the size cap
+# ---------------------------------------------------------------------------
+
+OPTION_SETS = {
+    "default": {},
+    "augmented": dict(use_given_smiles_form=True, use_ir=False),
+    "noise_pool": dict(hsqc_noise_pool=[(1.5, 30.0), (7.2, 128.5)]),
+}
+
+
+@pytest.mark.parametrize("opts", sorted(OPTION_SETS))
+def test_features_digest_matches_jax(opts):
+    """The port's digest is the JAX package's for the same records, model
+    layout and options (the cache is shared), and moves with each of them."""
+    jrecs, trecs = _records(9)
+    kw = OPTION_SETS[opts]
+    jl = jdp.Loader(jrecs, MCFG, batch_size=4, opts=jdp.FeaturizeOptions(**kw))
+    tl = tdp.Loader(trecs, TCFG, batch_size=4, opts=tdp.FeaturizeOptions(**kw))
+    assert tl.features_digest() == jl.features_digest()
+    assert tdp.FEATURIZE_SCHEMA_VERSION == jdp.FEATURIZE_SCHEMA_VERSION
+    other = tdp.Loader(trecs[:-1], TCFG, batch_size=4, opts=tdp.FeaturizeOptions(**kw))
+    wider = tdp.Loader(trecs, tconfig.ModelConfig(spectrum_points=72), batch_size=4,
+                       opts=tdp.FeaturizeOptions(**kw))
+    assert len({tl.features_digest(), other.features_digest(), wider.features_digest()}) == 3
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_feature_cache_is_shared_with_jax(tmp_path, monkeypatch, writer):
+    """A cache file written by one package is found and read by the other,
+    and gives exactly the reader's own featurization (kept rows included);
+    the reader writes no second file."""
+    jrecs, trecs = _records(9)
+    monkeypatch.setenv("MMT_FEATURE_CACHE", str(tmp_path))
+    own = tdp.Loader(trecs, TCFG, batch_size=4)._featurize_records()
+    if writer == "jax":
+        jdp.Loader(jrecs, MCFG, batch_size=4).device_dataset()
+    else:
+        tdp.Loader(trecs, TCFG, batch_size=4).device_dataset("cpu")
+    files = sorted(tmp_path.glob("mmt_features_*.npz"))
+    assert len(files) == 1
+    if writer == "jax":
+        tl = tdp.Loader(trecs, TCFG, batch_size=4)
+        dd = tl.device_dataset("cpu")
+        _assert_batches_equal(tdp.TrainBatch(*dd), own[0])
+        assert tl._device_kept_smiles == [trecs[int(i)].smiles for i in own[1]]
+    else:
+        jl = jdp.Loader(jrecs, MCFG, batch_size=4)
+        jdd = jl.device_dataset()
+        _assert_batches_equal(jax.tree.map(np.asarray, jdd), own[0])
+        assert jl._device_kept_smiles == [trecs[int(i)].smiles for i in own[1]]
+    assert sorted(tmp_path.glob("mmt_features_*.npz")) == files
+
+
+def test_device_dataset_cap_from_the_environment(monkeypatch):
+    """``MMT_DEVICE_DATASET_GB`` is the default cap: a set over it falls back
+    to the host path; an explicit ``max_bytes`` still wins."""
+    _, trecs = _records(9)
+    monkeypatch.setenv("MMT_DEVICE_DATASET_GB", "1e-6")  # about 1 KiB
+    assert tdp.Loader(trecs, TCFG, batch_size=4).device_dataset("cpu") is None
+    assert tdp.Loader(trecs, TCFG, batch_size=4).device_dataset("cpu", max_bytes=1 << 30) \
+        is not None
+    monkeypatch.delenv("MMT_DEVICE_DATASET_GB")
+    assert tdp.Loader(trecs, TCFG, batch_size=4).device_dataset("cpu") is not None

@@ -19,7 +19,7 @@ from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
 from multimodalspectraltransformer_torch.rank import clip, matching
 from multimodalspectraltransformer_torch.sim import factory
-from multimodalspectraltransformer_torch.train import improvement_cycle, loop, molgen
+from multimodalspectraltransformer_torch.train import contrastive, improvement_cycle, loop, molgen
 from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
 
@@ -40,6 +40,7 @@ PORT_MODULES = [
     for m in ("models.convert", "models.mmt", "ops.decode_attention", "ops.auction",
               "ops.beam_attention", "decode", "decode.functional", "decode.samplers",
               "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching", "rank.clip",
+              "rank.qformer",
               "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom",
               "data.samplers", "models.layers", "train.contrastive", "train.loss", "train.state",
               "train.step", "train.loop", "train.checkpoint", "train.molgen",
@@ -151,6 +152,11 @@ ENTRY_POINTS = {
         mmt.MultimodalTransformer(ModelConfig.small()), []),
     "run_improvement_cycle": lambda: improvement_cycle.run_improvement_cycle(
         MMTConfig(model=ModelConfig.small()), [], {}),
+    "train_contrastive": lambda: contrastive.train_contrastive(
+        MMTConfig(model=ModelConfig.small()), {}, []),
+    "retrieval_accuracy": lambda: contrastive.retrieval_accuracy(
+        None, MMTConfig(model=ModelConfig.small()), {}, []),
+    "cli_train_clip": lambda: cli.main(["train-clip", "--synthetic", "4"]),
 }
 
 

@@ -183,11 +183,15 @@ def test_device_and_host_paths_train_alike():
 
 
 def test_run_training_refuses_what_is_not_ported():
+    """A mesh (data parallelism) is refused; in-training generation metrics
+    are ported, and every ``gen_metrics_every`` steps a line of them is
+    logged."""
     loader = tdp.Loader(tdp.synthetic_dataset(4), MCFG, batch_size=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.run_training(CFG, loader, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.run_training(CFG, loader, gen_metrics_every=5, device="cpu")
+    res = tloop.run_training(CFG, loader, gen_metrics_every=1, max_steps=2, device="cpu")
+    gm = [x for x in res.metrics.history if "gen_validity" in x]
+    assert [x["step"] for x in gm] == [1, 2]
 
 
 def test_crash_backup(tmp_path):
@@ -275,3 +279,93 @@ def test_cli_train_prints_the_jax_commands_keys(monkeypatch, tmp_path):
     loaded = jckpt.import_params_msgpack(template, line["params"])
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(loaded))
     assert jnp.asarray(loaded["fc_out"]["kernel"]).shape == (128, 43)
+
+
+# ---------------------------------------------------------------------------
+# in-training generation metrics and the spectral feedback term
+# ---------------------------------------------------------------------------
+
+_GM: dict = {}
+
+
+def _gen_metrics_setup():
+    """phase3 in both packages (full width, float32) and one batch of 8
+    factory molecules simulated by the port, featurized by each package."""
+    if "setup" not in _GM:
+        from multimodalspectraltransformer_torch.data import molrandom
+        from multimodalspectraltransformer_torch.sim import factory as tfactory
+        from multimodalspectraltransformer_tpu.data import pipeline as jdp
+
+        recs = tfactory.simulate_records(molrandom.random_corpus(8, seed=31), device="cpu")
+        jcfg = ModelConfig()
+        jb = jdp.collate([jdp.featurize(r, jcfg) for r in recs])
+        tb = tdp.to_device(tdp.collate([tdp.featurize(r, tconfig.ModelConfig()) for r in recs]),
+                           "cpu")
+        params = jckpt.import_params_msgpack(jmmt.init_params(jcfg, jax.random.PRNGKey(0)),
+                                             PHASE3)
+        _GM["setup"] = (params, tmmt.load_model(PHASE3, tconfig.ModelConfig(), device="cpu"),
+                        jax.tree.map(jnp.asarray, jb), tb)
+    return _GM["setup"]
+
+
+@pytest.mark.parametrize("case", ["plain", "weighted"])
+def test_generation_metrics_match_jax(case):
+    """phase3's greedy generations on 8 factory molecules are the JAX
+    package's, string for string, and every metric is within 1e-6 relative
+    (NaN where JAX's is NaN): with the defaults, and with every auxiliary
+    term live (MW, spectral feedback, tanimoto, validity; annealed weights,
+    a fixed MW range)."""
+    from multimodalspectraltransformer_tpu.train import loop as jloop
+    from multimodalspectraltransformer_tpu.utils.config import MMTConfig, TrainConfig
+
+    params, model, jb, tb = _gen_metrics_setup()
+    train = {}
+    if case == "weighted":
+        train = dict(weight_mw=2.0, weight_sgnn=0.5, weight_tanimoto=0.3, weight_validity=0.7,
+                     sgnn_feedback=True, change_loss_weights=True, batch_frequency=3,
+                     train_weight_min=50.0, train_weight_max=600.0)
+    jcfg = MMTConfig(model=ModelConfig(), train=TrainConfig(**train))
+    tcfg = tconfig.MMTConfig(train=tconfig.TrainConfig(**train))
+    ours = tloop.generation_metrics(model, tcfg, tb, step=7)
+    theirs = jloop.generation_metrics(jmmt.MultimodalTransformer(jcfg.model), jcfg, params, jb,
+                                      step=7)
+    assert set(ours) == set(theirs)
+    for k, v in theirs.items():
+        if np.isnan(v):
+            assert np.isnan(ours[k]), k
+        else:
+            assert abs(ours[k] - v) <= 1e-6 * max(abs(v), 1e-12), (k, ours[k], v)
+    if case == "weighted":
+        assert theirs["gen_validity"] > 0.5 and np.isfinite(theirs["sgnn_sim_error"])
+        assert theirs["weight_MW"] > 2.0  # annealed
+    gen, _ = tloop.greedy_generations(model, tcfg, tb)
+    from multimodalspectraltransformer_tpu.decode import samplers as jsamplers
+    from multimodalspectraltransformer_tpu.eval.harness import _encode_batch
+    from multimodalspectraltransformer_tpu.utils import vocab as jvocab
+
+    enc = _encode_batch(jmmt.MultimodalTransformer(jcfg.model), params, jb.inputs)
+    res = jsamplers.greedy_decode(params, jcfg.model, enc.memory, enc.memory_key_padding_mask,
+                                  1.0, jcfg.model.spectrum_points)
+    assert gen == jvocab.batch_ids_to_smiles(np.asarray(res.tokens))
+
+
+def test_spectral_feedback_error_matches_jax():
+    """The feedback term on the same generations (the batch's own targets,
+    one invalid string, one molecule without HSQC input) equals JAX's within
+    1e-6 relative; none valid gives NaN."""
+    from multimodalspectraltransformer_tpu.train import loop as jloop
+
+    _, _, jb, tb = _gen_metrics_setup()
+    from multimodalspectraltransformer_torch.utils import vocab as tvocab
+
+    gen = [tvocab.ids_to_smiles(t[1:]) for t in tb.trg_tokens.numpy()]
+    gen[2] = "C1CC("
+    valid = np.array([g != "C1CC(" for g in gen])
+    tb_blank = tb._replace(inputs=tb.inputs._replace(src_hsqc=tb.inputs.src_hsqc.clone()))
+    tb_blank.inputs.src_hsqc[5] = 0.0
+    jb_blank = jb._replace(inputs=jb.inputs._replace(
+        src_hsqc=jnp.asarray(tb_blank.inputs.src_hsqc.numpy())))
+    ours = tloop.spectral_feedback_error(gen, tb_blank, valid)
+    theirs = jloop.spectral_feedback_error(gen, jb_blank, valid)
+    assert np.isfinite(theirs) and abs(ours - theirs) <= 1e-6 * abs(theirs), (ours, theirs)
+    assert np.isnan(tloop.spectral_feedback_error(gen, tb, np.zeros(len(gen), bool)))
