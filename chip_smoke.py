@@ -69,17 +69,32 @@ Phases, one line of output each (or a few):
              256, lr 1e-4, weight decay 1e-3, weight_sorted, dropout 0.1, 64
              text tokens) on phase 6's factory records plus 384 more, the
              first 64 held out: ``train_contrastive`` for 6 steps, retrieval
-             R@1/R@5 before and after, the median step time, samples/s,
-             FLOPs (FlopCounterMode), TFLOP/s and peak memory; checks: a
-             tower step (dropout off) at clip_r4's width from the tower's
-             init on the card against the CPU, resume
+             R@1/R@5 before and after on those 64 and on the accuracy
+             report's 982 pinned held-out records, the median step time,
+             samples/s, FLOPs (FlopCounterMode), TFLOP/s and peak memory;
+             checks: a tower step (dropout off) from clip_r4 on the card
+             against the CPU, on the first batch of 64 pinned held-out
+             records whose loss is at least 1e-2, resume
              from the ``.state`` snapshot bit-exact, the bundle that
              ``save_bundle`` wrote scoring the main path's candidates through
              ``evaluate_molecules``. Then the BLIP trainer at
              ``QFormerConfig()`` width, batch 32: step time, peak memory,
              finite losses, and ``lm_generate_greedy`` on 8 molecules, card
              against CPU, token for token. No kernel of its own: the JAX
-             towers reach no Pallas kernel.
+             towers reach no Pallas kernel;
+9. tools   - the simulators' trainer at the committed width (hidden 128, 4
+             message steps, 1801 IR bins) on the rule teachers' labels of
+             ``random_corpus(4096, seed=11)``: the committed weights, one step
+             at lr 0, report JAX's held-out MAEs; 3 steps of each trainer on
+             the card against the CPU; 200 steps timed (ms a step, samples/s,
+             TFLOP/s, peak memory, CUDA kernels a step); the weight files
+             written and read back, the committed ones unchanged (sha256).
+             The vector DB: phase3's fingerprints of phase 6's records on
+             the card against the CPU, self-retrieval and top 10 by cosine;
+             a Morgan DB of 10,000 molecules queried 256 times; UMAP and the
+             HTML plot; ``cli vectorize`` in a subprocess; phase3 through a
+             Lightning-style torch checkpoint decoding as phase3. No kernel:
+             the JAX package computes all of it outside Pallas.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -114,9 +129,11 @@ import numpy as np
 
 import kernel_timing as kt
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+from multimodalspectraltransformer_torch.utils.roofline import H100_HBM_BYTES_PER_S, H100_PEAK_FLOPS
+
+HBM_BYTES_PER_S = H100_HBM_BYTES_PER_S
+F32_FLOPS = H100_PEAK_FLOPS["float32"]
+BF16_FLOPS = H100_PEAK_FLOPS["bfloat16"]
 
 K1_SOURCE = "multimodalspectraltransformer_torch/csrc/decode_attention.cu"
 K1_REPLACES = "multimodalspectraltransformer_tpu/ops/decode_attention.py:49"
@@ -126,6 +143,9 @@ K3_SOURCE = "multimodalspectraltransformer_torch/csrc/beam_attention.cu"
 K3_REPLACES = "multimodalspectraltransformer_tpu/ops/beam_attention.py:34"
 PHASE3 = "weights/mmt_r4_phase3.msgpack.gz"
 CLIP_R4 = "weights/clip_r4.msgpack.gz"
+# the accuracy report's pinned held-out molecules and their records
+HELDOUT_DIR = "runs/accuracy_r3"
+HELDOUT_RECORDS = "runs/accuracy_r2b/heldout_csv.tar.gz"
 
 
 def log(msg: str) -> None:
@@ -835,13 +855,10 @@ def _flops_per_step(cfg, state, batch) -> float:
     """FLOPs of one train step, counted by FlopCounterMode (forward and
     backward matrix products; the optimizer's elementwise work is not
     counted)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from multimodalspectraltransformer_torch.train import step
+    from multimodalspectraltransformer_torch.utils.roofline import flop_count
 
-    with FlopCounterMode(display=False) as counter:
-        step.train_step(cfg, state, batch)
-    return float(counter.get_total_flops())
+    return flop_count(step.train_step, cfg, state, batch)
 
 
 def time_steps(dev, loader, cfg, init, warmup: int = 5, timed: int = 10) -> dict:
@@ -1290,6 +1307,23 @@ def serve_phase(dev, card: str) -> None:
 # phase 8: the contrastive trainers
 # ---------------------------------------------------------------------------
 
+def pinned_heldout_records(n: int = 982) -> list:
+    """The accuracy report's pinned held-out records (``HELDOUT_RECORDS``
+    filtered to the molecules of ``HELDOUT_DIR``), read with the report's
+    own loaders."""
+    import importlib.util
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location("torch_accuracy_report",
+                                                  os.path.join("scripts", "torch_accuracy_report.py"))
+    acc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(acc)
+    keep = set(acc.load_heldout(HELDOUT_DIR, n))
+    with tempfile.TemporaryDirectory() as scratch:
+        records = acc.load_records(HELDOUT_RECORDS, scratch)
+    return [r for r in records if r.smiles in keep][:n]
+
+
 def tower_batches(dev, mmt_cfg, records, ccfg, n: int):
     """``n`` batches of the trainer's device path (weight-sorted rows of the
     device dataset, the corpus's text tokenized once): [(inputs, tokens,
@@ -1321,10 +1355,10 @@ def time_tower_steps(dev, tower, model, mmt_model, batches, ccfg, warmup: int) -
     median after ``warmup`` steps, samples/s, peak memory, FLOPs of the
     encode and of the tower step (FlopCounterMode, one more step)."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from multimodalspectraltransformer_torch.train import contrastive as con
     from multimodalspectraltransformer_torch.train.step import step_generator
+    from multimodalspectraltransformer_torch.utils.roofline import flop_count
 
     opt = con.make_optimizer(con.trained_parameters(model, tower), ccfg)
     torch.cuda.synchronize()
@@ -1338,12 +1372,10 @@ def time_tower_steps(dev, tower, model, mmt_model, batches, ccfg, warmup: int) -
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     inputs, toks, mask = batches[0]
-    with FlopCounterMode(display=False) as fc:
-        enc = con._encode_frozen(mmt_model, inputs)
-    enc_flops = float(fc.get_total_flops())
-    with FlopCounterMode(display=False) as fc:
-        con.tower_step(model, opt, tower, enc, toks, mask, ccfg.temperature, step_generator(0, 99))
-    tower_flops = float(fc.get_total_flops())
+    enc = con._encode_frozen(mmt_model, inputs)
+    enc_flops = flop_count(con._encode_frozen, mmt_model, inputs)
+    tower_flops = flop_count(con.tower_step, model, opt, tower, enc, toks, mask, ccfg.temperature,
+                             step_generator(0, 99))
     ms = float(np.median(times[warmup:])) * 1e3
     return dict(step_ms=ms, samples_per_s=ccfg.batch_size / ms * 1e3, peak_bytes=peak,
                 enc_flops=enc_flops, tower_flops=tower_flops,
@@ -1410,6 +1442,37 @@ def tower_resume_exact(dev, tower, model, mmt_model, batches, ccfg) -> None:
         raise AssertionError(f"resuming the {tower} trainer from its snapshot is not exact")
 
 
+def clip_r4_step_card_vs_cpu(dev, mmt_cfg, mmt_model, pinned, ccfg, batch_size: int = 64,
+                             min_loss: float = 1e-2) -> None:
+    """One clip tower step from clip_r4 (dropout and TF32 off) on the card
+    and on the CPU: ``compare_steps``, on the first batch of the pinned
+    held-out records whose loss is at least ``min_loss``. On factory records,
+    clip_r4's own kind, a batch's loss is about 1e-4 and its gradient float32
+    rounding noise."""
+    import torch
+
+    from multimodalspectraltransformer_torch.rank import clip
+    from multimodalspectraltransformer_torch.train import contrastive as con
+
+    r4 = clip.load_bundle(CLIP_R4, device=dev)[0].eval()
+    bcfg = dataclasses.replace(ccfg, batch_size=batch_size)
+    losses = []
+    for inputs, toks, mask in tower_batches(dev, mmt_cfg, pinned, bcfg, len(pinned) // batch_size):
+        enc = con._encode_frozen(mmt_model, inputs)
+        with torch.no_grad():
+            losses.append(float(con.tower_loss(r4, "clip", enc, toks, mask, 1.0)))
+        if losses[-1] >= min_loss:
+            break
+    log(f"[contrastive] clip_r4's loss on batches of {batch_size} pinned held-out records: "
+        + ", ".join(f"{x:.3e}" for x in losses))
+    if losses[-1] < min_loss:
+        raise AssertionError(f"no batch of the pinned held-out records has a loss of {min_loss}")
+    tower_step_card_vs_cpu(dev, "clip", r4.cpu(), enc, toks, mask, ccfg.learning_rate,
+                           f"[contrastive] check, one clip tower step from clip_r4 on "
+                           f"{batch_size} pinned held-out records (loss {losses[-1]:.3e}, dropout "
+                           f"and TF32 off)")
+
+
 def contrastive_phase(dev, card: str, phase6_records, main) -> None:
     """Phase 8 (see the module docstring)."""
     import copy
@@ -1442,10 +1505,11 @@ def contrastive_phase(dev, card: str, phase6_records, main) -> None:
         f"{r4_cfg.text_hidden} wide, dropout {r4_cfg.dropout}, "
         f"{sum(p.numel() for p in r4.parameters()) / 1e6:.1f} M parameters) in "
         f"{time.perf_counter() - t_phase:.2f} s")
-    recall = lambda m: con.retrieval_accuracy(m, mmt_cfg, phase3, heldout, "clip",
-                                              batch_size=64, device=dev)
+    pinned = pinned_heldout_records()
+    recall = lambda m, recs=heldout: con.retrieval_accuracy(m, mmt_cfg, phase3, recs, "clip",
+                                                            batch_size=64, device=dev)
     fmt = lambda r: " ".join(f"{k}={v:.4f}" for k, v in r.items() if k != "n")
-    before = recall(r4)
+    before, before_pinned = recall(r4), recall(r4, pinned)
 
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "clip.msgpack")
@@ -1457,12 +1521,14 @@ def contrastive_phase(dev, card: str, phase6_records, main) -> None:
         wall = time.perf_counter() - t0
         losses = [x["clip_loss"] for x in logger.history]
         files = sorted(os.listdir(tmp))
-        after = recall(model)
+        after, after_pinned = recall(model), recall(model, pinned)
         log(f"[contrastive] train_contrastive clip from clip_r4, batch 256: {len(losses)} steps "
             f"in {wall:.2f} s (set-up included), losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}; wrote {files}")
-        log(f"[contrastive] retrieval on {before['n']} held-out records: before {fmt(before)}; "
-            f"after {fmt(after)}")
+        log(f"[contrastive] retrieval on {before['n']} held-out factory records: before "
+            f"{fmt(before)}; after {fmt(after)}")
+        log(f"[contrastive] retrieval on the {before_pinned['n']} pinned held-out records of the "
+            f"accuracy report: before {fmt(before_pinned)}; after {fmt(after_pinned)}")
         if len(losses) != 6 or not np.all(np.isfinite(losses)) or files != [
                 "clip.msgpack", "clip.msgpack.state"]:
             raise AssertionError("train_contrastive did not take 6 finite steps with its snapshot "
@@ -1489,14 +1555,8 @@ def contrastive_phase(dev, card: str, phase6_records, main) -> None:
         f"{r['tflops_per_s']:.2f} TFLOP/s ({r['tflops_per_s'] * 1e12 / F32_FLOPS:.1%} of the "
         f"float32 peak), peak memory {r['peak_bytes'] / 2**30:.3f} GiB; {card}")
     tower_resume_exact(dev, "clip", model, mmt_model, batches, ccfg)
-    # from the tower's own init at clip_r4's width: from clip_r4 the loss of a
-    # batch of 16 is about 1e-4 and its gradient float32 rounding noise
     del model, r4
-    inputs, toks, mask = batches[0]
-    enc = tuple(x[:16] for x in con._encode_frozen(mmt_model, inputs))
-    tower_step_card_vs_cpu(dev, "clip", con.make_tower("clip", r4_cfg)[0], enc, toks[:16],
-                           mask[:16], ccfg.learning_rate, "[contrastive] check, one clip tower "
-                           "step at clip_r4 width from init (batch 16, dropout and TF32 off)")
+    clip_r4_step_card_vs_cpu(dev, mmt_cfg, mmt_model, pinned, ccfg)
 
     # the BLIP trainer at QFormerConfig() width, batch 32 (the cli's default)
     bcfg = dataclasses.replace(ccfg, batch_size=32, max_steps=4, save_every=0)
@@ -1531,6 +1591,390 @@ def contrastive_phase(dev, card: str, phase6_records, main) -> None:
     if not same:
         raise AssertionError("lm_generate_greedy on the card differs from the CPU")
     log(f"[contrastive] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the simulators' trainer and the offline tools
+# ---------------------------------------------------------------------------
+
+# JAX's train_shift_model / train_ir_model(data, n_steps=1, lr=0.0) from the
+# committed weights on build_teacher_dataset(random_corpus(4096, seed=11)),
+# seed 0, on a CPU: the held-out MAEs of the committed weights on that split
+SHIFT_ANCHOR = {"val_mae_c_ppm": 0.55575, "val_mae_h_ppm": 0.017206}
+IR_ANCHOR = {"val_mae": 0.017412}
+
+
+def sha256_files(d: str) -> dict:
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def distill_anchors(dev, data) -> None:
+    """The committed weights, trained one step at lr 0 on the card, report
+    the JAX package's held-out MAEs within 1e-3 relative."""
+    from multimodalspectraltransformer_torch.sim import distill
+
+    shift, _ = distill.load_shift_weights(device=dev)
+    with open(os.path.join(distill.WEIGHTS_DIR, "nmr_shift.json")) as f:
+        stats = json.load(f)["stats"]
+    _, _, rep = distill.train_shift_model(data, n_steps=1, lr=0.0, init_params=shift.state_dict(),
+                                          init_stats=stats, device=dev)
+    ir = distill.load_ir_weights(device=dev)
+    _, ir_rep = distill.train_ir_model(data, n_steps=1, lr=0.0, init_params=ir.state_dict(),
+                                       device=dev)
+    got = {**{k: rep[k] for k in SHIFT_ANCHOR}, **{k: ir_rep[k] for k in IR_ANCHOR}}
+    want = {**SHIFT_ANCHOR, **IR_ANCHOR}
+    ok = all(abs(got[k] - v) <= 1e-3 * v for k, v in want.items())
+    log("[tools] committed simulator weights on the card, one step at lr 0: "
+        + ", ".join(f"{k} {got[k]:.6f} (JAX {v})" for k, v in want.items())
+        + f" (tol 1e-3 relative) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the committed simulator weights do not give JAX's held-out MAEs")
+
+
+def _train_recording(train, **kw):
+    """``train(**kw)`` -> (its result, each step's gradients on the CPU, in
+    ``named_parameters`` order)."""
+    from multimodalspectraltransformer_torch.sim import distill
+
+    grads = []
+    step = distill.OptaxAdamW.step
+
+    def recording(opt, lr):
+        grads.append([p.grad.detach().cpu().clone() for p in opt.params])
+        step(opt, lr)
+
+    distill.OptaxAdamW.step = recording
+    try:
+        return train(**kw), grads
+    finally:
+        distill.OptaxAdamW.step = step
+
+
+def distill_card_vs_cpu(dev, data) -> None:
+    """3 steps of each trainer from the same fresh init (seed 0) at batch 256
+    (shift) and 128 (IR), on the card and on the CPU: the final loss within
+    1e-5 relative; every parameter within 1e-5 of its leaf's largest
+    magnitude wherever the gradient is resolved (``resolved_gradient``) at
+    every step: Adam's later steps turn the rounding of a gradient that is
+    not into a different update."""
+    import functools
+
+    import torch
+
+    from multimodalspectraltransformer_torch.sim import distill
+
+    for name, train, kw in (("shift", distill.train_shift_model, dict(batch_size=256)),
+                            ("IR", distill.train_ir_model, dict(batch_size=128))):
+        out = {}
+        for d in ("cpu", dev):
+            res, grads = _train_recording(train, data=data, n_steps=3, log_every=0, device=d, **kw)
+            model, rep = res[0], res[-1]
+            names = [k for k, _ in model.named_parameters()]
+            out[str(d)] = (rep["final_loss"], [dict(zip(names, g)) for g in grads],
+                           {k: p.detach().cpu() for k, p in model.named_parameters()})
+        (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out[str(dev)]
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        worst, where = 0.0, ""
+        n_unresolved = n_over = 0
+        for k, p in p_cpu.items():
+            resolved = functools.reduce(torch.logical_and, (resolved_gradient(a[k], b[k])
+                                                           for a, b in zip(g_cpu, g_card)))
+            n_unresolved += int((~resolved).sum())
+            rel = (p_card[k] - p).abs() / p.abs().max()
+            n_over += int((rel[resolved] > 1e-5).sum())
+            if resolved.any() and rel[resolved].max().item() > worst:
+                worst = rel[resolved].max().item()
+                i = int((rel * resolved).argmax())
+                where = (f" (at {k}[{i}]: gradients {[f'{g[k].flatten()[i].item():.3e}' for g in g_cpu]}"
+                         f" on the CPU, {[f'{g[k].flatten()[i].item():.3e}' for g in g_card]} on "
+                         f"the card)")
+        n_all = sum(p.numel() for p in p_cpu.values())
+        ok = loss_rel <= 1e-5 and worst <= 1e-5
+        log(f"[tools] {name} trainer, 3 steps at batch {kw['batch_size']} from the seeded init, "
+            f"card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-5); "
+            f"params within {worst:.2e} of their leaf's max where the gradient is resolved at "
+            f"every step{where} (tol 1e-5; {n_over} over it; {n_unresolved} of {n_all} "
+            f"unresolved) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {name} trainer's steps on the card differ from the CPU")
+
+
+def time_distill(dev, data, card: str) -> None:
+    """200 steps of each trainer at batch 256 (shift) and 128 (IR): ms per
+    step as the wall time of a 220-step run less that of a 20-step run
+    (set-up and validation cancel), twice in turn; samples/s, peak memory,
+    FLOPs a step (FlopCounterMode: a 2-step run less a 1-step run), TFLOP/s
+    and the share of the float32 peak, and CUDA kernels a step under
+    torch.profiler (a 20-step run less a 10-step run)."""
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.sim import distill
+    from multimodalspectraltransformer_torch.utils import profiling, roofline
+
+    def kernels(prof) -> int:
+        return sum(1 for e in prof.events()
+                   if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False))
+
+    for name, train, batch in (("shift", distill.train_shift_model, 256),
+                               ("IR", distill.train_ir_model, 128)):
+        run = lambda n: train(data, batch_size=batch, n_steps=n, log_every=0, device=dev)
+        run(20)  # warm-up
+        walls = {20: [], 220: []}
+        torch.cuda.reset_peak_memory_stats()
+        for n in (20, 220, 220, 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n)
+            walls[n].append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        ms = [(b - a) / 200 * 1e3 for a, b in zip(walls[20], walls[220][::-1])]
+        flops = roofline.flop_count(run, 2) - roofline.flop_count(run, 1)
+        counts = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for n in (10, 20):
+                with profiling.device_trace(os.path.join(tmp, str(n))) as prof:
+                    run(n)
+                    torch.cuda.synchronize()
+                counts[n] = kernels(prof)
+        rl = roofline.Roofline(name, float(np.mean(ms)) * 1e-3, flops, 0.0, "float32")
+        log(f"[tools] {name} trainer, 200 steps at batch {batch} (hidden 128, 4 message steps"
+            f"{', 1801 bins' if name == 'IR' else ''}): "
+            f"{' / '.join(f'{x:.3f}' for x in ms)} ms a step, "
+            f"{' / '.join(f'{batch / x * 1e3:.1f}' for x in ms)} samples/s, "
+            f"{flops / 1e9:.3f} GFLOP a step, {rl.achieved_flops / 1e12:.3f} TFLOP/s "
+            f"({rl.mfu:.2%} of the float32 peak), peak memory {peak / 2**30:.3f} GiB, "
+            f"{(counts[20] - counts[10]) / 10:.1f} CUDA kernels a step; {card}")
+
+
+def distill_files(dev, data) -> None:
+    """``save_*_weights`` into a temporary directory; ``load_*_weights``
+    read back the same parameters and stats."""
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.sim import distill
+
+    shift, stats, rep = distill.train_shift_model(data, n_steps=2, log_every=0, device=dev)
+    ir, ir_rep = distill.train_ir_model(data, n_steps=2, log_every=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        distill.save_shift_weights(shift, stats, rep, tmp)
+        distill.save_ir_weights(ir, ir_rep, tmp)
+        files = sorted(os.listdir(tmp))
+        shift2, stats2 = distill.load_shift_weights(tmp, device=dev)
+        ir2 = distill.load_ir_weights(tmp, device=dev)
+    same = all(torch.equal(a, b) for m, m2 in ((shift, shift2), (ir, ir2))
+               for a, b in zip(m.state_dict().values(), m2.state_dict().values()))
+    same_stats = (stats2.mean_c, stats2.std_c, stats2.mean_h, stats2.std_h) == tuple(
+        stats[k] for k in ("mean_c", "std_c", "mean_h", "std_h"))
+    log(f"[tools] weight files {files} written and read back: parameters "
+        f"{'equal' if same else 'DIFFER'}, stats {'equal' if same_stats else 'DIFFER'}")
+    if not (same and same_stats):
+        raise AssertionError("the saved simulator weights do not read back equal")
+
+
+def model_db_checks(dev, records, model, card: str) -> np.ndarray:
+    """``build_model_db`` with phase3 over ``records`` at batch 256 on the card,
+    and over the first 64 on the CPU: the fingerprints within 1e-4 of their
+    largest magnitude; every record whose SMILES is unique retrieves itself
+    first by cosine; the card's top-10 indices equal the CPU's on the card's
+    vectors. Returns the card's DB."""
+    import collections
+    import copy
+
+    import torch
+
+    from multimodalspectraltransformer_torch.eval import vectordb
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = vectordb.build_model_db(records, model, batch_size=256, device=dev)
+    secs = time.perf_counter() - t0
+    ref = vectordb.build_model_db(records[:64], copy.deepcopy(model).cpu(), device="cpu")
+    fp_err = float(np.abs(db.vectors[:64] - ref.vectors).max() / np.abs(ref.vectors).max())
+    s, idx, _ = vectordb.query(db, db.vectors, k=10, device=dev)
+    s_cpu, idx_cpu, _ = vectordb.query(db, db.vectors, k=10, device="cpu")
+    counts = collections.Counter(db.smiles)
+    unique = [i for i, smi in enumerate(db.smiles) if counts[smi] == 1]
+    self_first = sum(int(idx[i, 0] == i) for i in unique)
+    ok = (db.smiles[:64] == ref.smiles and fp_err <= 1e-4 and self_first == len(unique)
+          and np.array_equal(idx, idx_cpu))
+    log(f"[tools] model DB of {len(db)} records (phase3 fingerprints, batch 256) in {secs:.2f} s "
+        f"on the card: the first 64 within {fp_err:.2e} of the CPU's (tol 1e-4); {self_first} of "
+        f"{len(unique)} records with a unique SMILES retrieve themselves first by cosine; top-10 "
+        f"indices {'equal' if np.array_equal(idx, idx_cpu) else 'DIFFER'} card vs CPU, scores "
+        f"within {np.abs(s - s_cpu).max():.2e} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("the model vector DB fails its checks")
+    return db
+
+
+def morgan_db_checks(dev, card: str) -> list:
+    """A 512-bit Morgan DB of ``random_corpus(10000, seed=12)``; 256 of its
+    SMILES queried at k 10 on the card and on the CPU: each first hit scores
+    1.0, scores and indices equal; queries per second on the card. Returns
+    the corpus."""
+    import torch
+
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.eval import vectordb
+
+    corpus = molrandom.random_corpus(10000, seed=12)
+    db = vectordb.build_morgan_db(corpus, n_bits=512)
+    queries = db.smiles[:256]
+    vectordb.query_smiles(db, queries, k=10, device=dev)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, idx, _, valid = vectordb.query_smiles(db, queries, k=10, device=dev)
+        times.append(time.perf_counter() - t0)
+    s_cpu, idx_cpu, _, _ = vectordb.query_smiles(db, queries, k=10, device="cpu")
+    ok = (valid.all() and (s[:, 0] == 1.0).all() and np.array_equal(s, s_cpu)
+          and np.array_equal(idx, idx_cpu))
+    log(f"[tools] Morgan DB of {len(db)} molecules (512 bits): 256 queries at k 10 in "
+        f"{' / '.join(f'{t * 1e3:.2f}' for t in times)} ms on the card "
+        f"({len(queries) / min(times):.0f} queries/s, fingerprints included); every first hit "
+        f"scores 1.0: {bool((s[:, 0] == 1.0).all())}; scores and indices equal to the CPU's: "
+        f"{np.array_equal(s, s_cpu) and np.array_equal(idx, idx_cpu)} {'ok' if ok else 'FAIL'}; "
+        f"{card}")
+    if not ok:
+        raise AssertionError("the Morgan vector DB fails its checks")
+    return corpus
+
+
+def layout_checks(db) -> None:
+    """UMAP of the model DB's vectors and the standalone HTML plot (numpy
+    and scipy only: the card's machine has no sklearn or matplotlib)."""
+    import tempfile
+
+    from multimodalspectraltransformer_torch.eval import clustering, umap
+
+    t0 = time.perf_counter()
+    coords = umap.umap_embed(db.vectors)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = clustering.cluster_plot_html(coords, db.smiles, os.path.join(tmp, "c.html"),
+                                            clustering.mw_labels(db.smiles))
+        size = os.path.getsize(path)
+    ok = coords.shape == (len(db), 2) and bool(np.isfinite(coords).all()) and size > 1000
+    log(f"[tools] umap_embed of {db.vectors.shape} and cluster_plot_html in "
+        f"{time.perf_counter() - t0:.2f} s: finite layout {coords.shape}, {size} bytes of HTML "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the UMAP layout or its plot failed")
+
+
+def cli_vectorize_check(corpus) -> None:
+    """``python -m multimodalspectraltransformer_torch.cli vectorize`` in a
+    subprocess exits 0 and prints its two JSON lines."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        smi = os.path.join(tmp, "mols.txt")
+        with open(smi, "w") as f:
+            f.write("\n".join(corpus[:500]) + "\n")
+        out = os.path.join(tmp, "db")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "multimodalspectraltransformer_torch.cli",
+                               "vectorize", "--smiles", smi, "--out", out, "--csv", "--query",
+                               corpus[3]], capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+        files = sorted(os.listdir(tmp))
+    ok = (proc.returncode == 0 and len(lines) == 2 and lines[0]["n"] == 500
+          and lines[1]["scores"][0] == 1.0 and files == ["db.csv", "db.json", "db.npz", "mols.txt"])
+    log(f"[tools] cli vectorize (500 molecules, --csv, --query) in {secs:.2f} s: exit "
+        f"{proc.returncode}, {lines[0] if lines else proc.stderr[-500:]}, first hit "
+        f"{lines[1]['hits'][0] if len(lines) > 1 else None} at "
+        f"{lines[1]['scores'][0] if len(lines) > 1 else None}; wrote {files} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli vectorize failed")
+
+
+def torch_checkpoint_check(dev, main) -> None:
+    """phase3 exported with ``to_torch_state_dict`` as a Lightning-style
+    ``.ckpt``, read back by ``load_torch_checkpoint`` into a model on the
+    card: its float32 greedy decodes of phase 3's molecules equal phase3's,
+    token for token."""
+    import tempfile
+
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.decode import samplers
+    from multimodalspectraltransformer_torch.models import convert, mmt
+    from multimodalspectraltransformer_torch.models.mmt import MMTBatch
+
+    records, model, dcfg = main
+    cfg = model.cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase3.ckpt")
+        sd = convert.to_torch_state_dict(cfg, model.state_dict())
+        torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}}, path)
+        other = mmt.model_from_state_dict(convert.load_torch_checkpoint(cfg, path), cfg, dev)
+
+    def greedy(m):
+        feats = [f for f in (dp.featurize(r, cfg) for r in records) if f is not None]
+        with torch.no_grad():
+            enc = m.encode(MMTBatch(*dp.collate(feats).inputs).to(dev))
+        return samplers.greedy_decode(m.state_dict(), cfg, enc.memory, enc.memory_key_padding_mask,
+                                      1.0, dcfg.max_len, device=dev).tokens.cpu()
+
+    a, b = greedy(model), greedy(other)
+    same = torch.equal(a, b)
+    log(f"[tools] phase3 through a Lightning-style .ckpt ({len(sd)} tensors, MF table "
+        f"{tuple(sd[convert.MF_KEY].shape)}): greedy decodes of {a.shape[0]} molecules x "
+        f"{a.shape[1]} tokens {'identical' if same else 'DIFFER'} to phase3's")
+    if not same:
+        raise AssertionError("the model read from the torch checkpoint decodes otherwise")
+
+
+def tools_phase(dev, card: str, phase6_records, main) -> None:
+    """Phase 9 (see the module docstring)."""
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.sim import distill
+    from multimodalspectraltransformer_torch.utils.profiling import PhaseTimer
+
+    t_phase = time.perf_counter()
+    sums = sha256_files(distill.WEIGHTS_DIR)
+    timer = PhaseTimer()
+    with timer.phase("teacher dataset"):
+        data = distill.build_teacher_dataset(molrandom.random_corpus(4096, seed=11))
+    log(f"[tools] teacher dataset: {len(data['n_atoms'])} graphs of random_corpus(4096, seed=11) "
+        f"in {timer.totals['teacher dataset']:.2f} s")
+    with timer.phase("distill anchors"):
+        distill_anchors(dev, data)
+    with timer.phase("distill card vs cpu"):
+        distill_card_vs_cpu(dev, data)
+    with timer.phase("distill timed"):
+        time_distill(dev, data, card)
+    with timer.phase("weight files"):
+        distill_files(dev, data)
+    with timer.phase("model db"):
+        db = model_db_checks(dev, phase6_records, main[1], card)
+    with timer.phase("morgan db"):
+        corpus = morgan_db_checks(dev, card)
+    with timer.phase("umap and html"):
+        layout_checks(db)
+    with timer.phase("cli vectorize"):
+        cli_vectorize_check(corpus)
+    with timer.phase("torch checkpoint"):
+        torch_checkpoint_check(dev, main)
+    after = sha256_files(distill.WEIGHTS_DIR)
+    log(f"[tools] sha256 of the committed simulator weights ({', '.join(sums)}) "
+        f"{'unchanged' if after == sums else 'CHANGED'}")
+    if after != sums:
+        raise AssertionError(f"the phase changed {distill.WEIGHTS_DIR}")
+    log("[tools] stages:\n" + timer.report())
+    log(f"[tools] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def require_simulator_weights(dev) -> None:
@@ -1589,6 +2033,7 @@ def main() -> int:
     phase6_records = train_phase(dev, card)
     serve_phase(dev, card)
     contrastive_phase(dev, card, phase6_records, (records, model, dcfg))
+    tools_phase(dev, card, phase6_records, (records, model, dcfg))
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

@@ -8,6 +8,7 @@ Subcommands:
   evaluate  run the full evaluation harness, print a metrics JSON
   improve   run the self-improvement fine-tuning cycle
   serve     run the web serving console (job queue + SSE, port 8083)
+  vectorize build a Morgan fingerprint vector DB, optionally query it
 
 Examples:
   python -m multimodalspectraltransformer_torch.cli simulate --smiles mols.txt --out simdata/
@@ -18,13 +19,18 @@ Examples:
   python -m multimodalspectraltransformer_torch.cli serve --params weights/mmt_r4_phase3.msgpack.gz
   python -m multimodalspectraltransformer_torch.cli train-clip --factory 1024 --eval-n 64 \
       --batch-size 256 --lr 1e-4 --params weights/mmt_r4_phase3.msgpack.gz --out clip_run/
+  python -m multimodalspectraltransformer_torch.cli vectorize --smiles mols.txt --out db --csv \
+      --query 'CCO'
 
 Every subcommand runs on ``cuda`` unless ``--device`` says otherwise, and
 prints the JSON line of the JAX package's command of the same name. ``train``
 and ``improve`` write ``<out>/params.msgpack``, which the JAX package's
 ``import_params_msgpack`` reads; ``train-clip`` writes the tower as
 ``<out>/<tower>.msgpack`` and, for CLIP, the bundle ``<out>/clip.msgpack``
-with its ``.json``, which ``evaluate --clip-params`` loads.
+with its ``.json``, which ``evaluate --clip-params`` loads. ``--params`` (a
+flax msgpack file) or ``--torch-checkpoint`` (a reference ``.pth`` or
+Lightning ``.ckpt``) gives the MMT's weights; ``--params`` wins when both
+are given.
 """
 
 from __future__ import annotations
@@ -176,7 +182,7 @@ def cmd_train(args) -> int:
                  drop_remainder=False)
 
     os.makedirs(args.out, exist_ok=True)
-    init = ckpt.import_params_msgpack(args.params) if args.params else None
+    init = _initial_params(args, mcfg)
     with _feature_cache(args.feature_cache):
         result = run_training(
             cfg, loader, val_loader=val, init_params=init,
@@ -198,6 +204,20 @@ def _check_params(args) -> None:
         raise SystemExit(f"--params {args.params!r} does not exist")
 
 
+def _initial_params(args, mcfg):
+    """The MMT state dict that ``--params`` (a flax msgpack file) or else
+    ``--torch-checkpoint`` (a reference ``.pth``/``.ckpt``) names, or None."""
+    if args.params:
+        from .train import checkpoint as ckpt
+
+        return ckpt.import_params_msgpack(args.params)
+    if args.torch_checkpoint:
+        from .models import convert
+
+        return convert.load_torch_checkpoint(mcfg, args.torch_checkpoint)
+    return None
+
+
 def cmd_evaluate(args) -> int:
     from .eval.harness import evaluate_molecules
     from .models import mmt
@@ -208,7 +228,8 @@ def cmd_evaluate(args) -> int:
     mcfg = _model_cfg(args)
     _check_params(args)
     records = _load_records(args, device)
-    model = (mmt.load_model(args.params, mcfg, device) if args.params
+    params = _initial_params(args, mcfg)
+    model = (mmt.model_from_state_dict(params, mcfg, device) if params is not None
              else mmt.init_model(mcfg, args.seed, device))
     dcfg = DecodeConfig(
         max_len=args.max_len, fanout=args.fanout,
@@ -257,8 +278,9 @@ def cmd_improve(args) -> int:
     )
     _check_params(args)
     targets = factory.simulate_records(_read_smiles(args.smiles), device=device)
-    params = (ckpt.import_params_msgpack(args.params) if args.params
-              else mmt.init_model(mcfg, args.seed, device).state_dict())
+    params = _initial_params(args, mcfg)
+    if params is None:
+        params = mmt.init_model(mcfg, args.seed, device).state_dict()
     icfg = ImprovementCycleConfig(
         max_cycles=args.cycles,
         ic_threshold=args.threshold,
@@ -290,7 +312,6 @@ def cmd_improve(args) -> int:
 def cmd_train_clip(args) -> int:
     from .models import mmt
     from .rank import clip as clip_mod
-    from .train import checkpoint as ckpt
     from .train import contrastive
     from .utils.config import MMTConfig
     from .utils.device import resolve_device
@@ -308,8 +329,9 @@ def cmd_train_clip(args) -> int:
     cfg = MMTConfig(model=mcfg)
     _check_params(args)
     records = _load_records(args, device)
-    params = (ckpt.import_params_msgpack(args.params) if args.params
-              else mmt.init_model(mcfg, args.seed, "cpu").state_dict())
+    params = _initial_params(args, mcfg)
+    if params is None:
+        params = mmt.init_model(mcfg, args.seed, "cpu").state_dict()
     heldout = []
     if args.eval_n > 0:
         heldout, records = records[: args.eval_n], records[args.eval_n :]
@@ -355,6 +377,26 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_vectorize(args) -> int:
+    from .eval import vectordb
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    db = vectordb.build_morgan_db(_read_smiles(args.smiles), n_bits=args.bits)
+    db.save(args.out)
+    if args.csv:
+        db.export_csv(args.out + ".csv")
+    print(json.dumps({"n": len(db), "out": args.out}))
+    if args.query:
+        scores, _idx, names, valid = vectordb.query_smiles(db, [args.query], k=args.k,
+                                                           device=device)
+        if not valid[0]:
+            print(json.dumps({"query": args.query, "error": "query SMILES is invalid"}))
+            return 1
+        print(json.dumps({"query": args.query, "hits": names[0], "scores": scores[0].tolist()}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mmst-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -368,6 +410,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--small", action="store_true", help="2-layer model for quick runs")
         sp.add_argument("--params", default="", help="params.msgpack(.gz) to load")
+        sp.add_argument("--torch-checkpoint", default="",
+                        help="reference .pth/.ckpt to convert (--params wins)")
         sp.add_argument("--synthetic", type=int, default=0, help="use N synthetic molecules")
         sp.add_argument("--factory", type=int, default=0,
                         help="generate N drug-like molecules and simulate their spectra")
@@ -488,6 +532,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--small", action="store_true")
     sp.add_argument("--params", default="")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("vectorize", help="build a fingerprint vector DB")
+    add_device(sp)
+    sp.add_argument("--smiles", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--bits", type=int, default=512)
+    sp.add_argument("--csv", action="store_true", help="also export reference-format CSV")
+    sp.add_argument("--query", default="", help="optionally query one SMILES")
+    sp.add_argument("--k", type=int, default=10)
+    sp.set_defaults(fn=cmd_vectorize)
     return p
 
 

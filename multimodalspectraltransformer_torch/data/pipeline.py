@@ -109,6 +109,76 @@ def load_spectra_csvs(
     return records
 
 
+def ref_testset_split(sample_id: str) -> str:
+    """Stable 50/50 split of the reference's shipped test molecules into an
+    'adapt' half (may supply domain-adaptation training signal) and an
+    'eval' half that no training may touch, keyed on the sample id (the
+    JAX package's split, id for id)."""
+    h = int(hashlib.sha1(sample_id.encode()).hexdigest(), 16)
+    return "adapt" if h % 2 == 0 else "eval"
+
+
+def load_reference_testset(
+    csv_13c: str = "",
+    csv_hsqc: str = "",
+    csv_cosy: str = "",
+    csv_1h: str = "",
+    limit: int = 0,
+) -> list[SampleRecord]:
+    """The reference's shipped held-out test sets: headerless CSVs of
+    ``SMILES,"[data]",sample-id`` rows, one file per modality over the same
+    molecules (``ML_NMR_5M_XL_{13C,HSQC,COSY}_test_10x100.csv`` and
+    ``ML_NMR_1H_combined_ZINC_test_10x100.csv``).
+
+    Payloads: 13C a flat shift list, HSQC ``[H, C]`` pairs, COSY ``(H, H)``
+    tuples, 1H ``(ppm, relative-intensity)`` peaks, all
+    ``ast.literal_eval``-able; tuples become the lists ``featurize`` reads.
+    Records are joined by sample id, in order of first appearance; rows
+    that do not parse are skipped."""
+    tables: dict[str, dict] = {}
+    for key, path in (("1H", csv_1h), ("13C", csv_13c), ("HSQC", csv_hsqc), ("COSY", csv_cosy)):
+        if not path:
+            continue
+        t: dict = {}
+        with open(path, newline="") as f:
+            for row in csv.reader(f):
+                if len(row) < 3:
+                    continue
+                smi, data, sid = row[0].strip(), row[1], row[2].strip()
+                try:
+                    parsed = _parse_shifts(data)
+                except (ValueError, SyntaxError):
+                    continue
+                if key != "13C":
+                    parsed = [list(p) for p in parsed]
+                t[sid] = (smi, parsed)
+        tables[key] = t
+
+    ids: list[str] = []
+    seen: set = set()
+    for t in tables.values():
+        for sid in t:
+            if sid not in seen:
+                seen.add(sid)
+                ids.append(sid)
+    if limit:
+        ids = ids[:limit]
+
+    records = []
+    for sid in ids:
+        smiles = None
+        fields: dict = {}
+        for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
+            if key in tables and sid in tables[key]:
+                smi, data = tables[key][sid]
+                smiles = smiles or smi
+                fields[attr] = data
+        if smiles is None:
+            continue
+        records.append(SampleRecord(sid, smiles, **fields))
+    return records
+
+
 def load_real_example(dir_path: str, use_ir: bool = True, limit: int = 0) -> list[SampleRecord]:
     """Experimental spectra in the AZ example format (the input of the
     reference's /run_model_exp_data route): semicolon-separated

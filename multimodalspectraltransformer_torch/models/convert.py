@@ -18,6 +18,11 @@ the reference torch model's keys:
 writes a tree in flax's msgpack encoding (bf16 leaves included), so the port's
 parameters load in the JAX package's ``import_params_msgpack``.
 
+``from_torch_state_dict`` / ``to_torch_state_dict`` map the reference's own
+PyTorch checkpoints (212 MF rows) to and from the port's state dict, and
+``load_torch_checkpoint`` reads a ``.pth`` or a Lightning ``.ckpt``;
+``linear_tree`` is the inverse of ``linear_params`` for the GNN simulators.
+
 ``from_jax_clip_params`` does the same for the CLIP ranking tower
 (``rank/clip.py``), whose bundle ``weights/clip_r4.msgpack.gz`` holds float32
 leaves under a top-level ``params`` key, and ``from_jax_blip_params`` for the
@@ -625,3 +630,64 @@ def linear_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return sd
+
+
+def linear_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``linear_params``: torch Linear keys -> a flax tree of
+    float32 numpy ``kernel`` [in, out] / ``bias`` leaves, keys sorted as a
+    jitted JAX function returns them."""
+    tree: dict = {}
+    for k, v in sd.items():
+        *path, leaf = k.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        arr = _np(v)
+        node["kernel" if leaf == "weight" else leaf] = arr.T.copy() if leaf == "weight" else arr
+    return _sorted(tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's PyTorch checkpoints
+# ---------------------------------------------------------------------------
+
+MF_KEY = "linear_embedding_MF.embedding.weight"
+
+
+def _model_keys(cfg) -> list[str]:
+    """The state-dict keys of ``MultimodalTransformer(cfg)``, built on the
+    meta device (no storage)."""
+    from .mmt import MultimodalTransformer
+
+    with torch.device("meta"):
+        return list(MultimodalTransformer(cfg).state_dict())
+
+
+def from_torch_state_dict(cfg, sd: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A reference ``MultimodalTransformer`` state dict (torch tensors or
+    numpy arrays) -> the port's float32 state dict for ``cfg``. The keys are
+    the same; the MF table's 212 rows gain the zero 213th row the port's
+    table holds. Keys the model does not have are ignored."""
+    out = {k: _t(sd[k]) for k in _model_keys(cfg) if k != MF_KEY}
+    mf = _t(sd[MF_KEY])
+    out[MF_KEY] = torch.cat([mf, mf.new_zeros(1, mf.shape[1])])
+    return out
+
+
+def to_torch_state_dict(cfg, sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The port's state dict for ``cfg`` -> the reference's (float32 CPU
+    tensors; the MF table without its 213th row)."""
+    out = {k: _t(sd[k]) for k in _model_keys(cfg)}
+    out[MF_KEY] = out[MF_KEY][:-1].contiguous()
+    return out
+
+
+def load_torch_checkpoint(cfg, path: str) -> dict[str, torch.Tensor]:
+    """A reference ``.pth`` (a raw state dict) or Lightning ``.ckpt`` (the
+    weights under ``state_dict`` with a ``model.`` prefix) -> the port's
+    state dict for ``cfg``. The file is unpickled in full: load only
+    checkpoints you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = {k.removeprefix("model."): v for k, v in blob["state_dict"].items()}
+    return from_torch_state_dict(cfg, blob)

@@ -177,7 +177,8 @@ def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.Linear) and not name.endswith("out_proj"):
             std = (1.0 / mod.in_features) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             nn.init.normal_(mod.weight, std=mod.embedding_dim**-0.5, generator=gen)
         elif isinstance(mod, nn.LayerNorm):

@@ -115,7 +115,7 @@ def _predict_chunked(model, compacts, device, chunk: int = 256, max_nodes: int =
         edges = torch.from_numpy(np.stack([compacts[i][1] for i in pad])).to(device)
         n_at = torch.tensor([compacts[i][2] for i in pad], dtype=torch.int32, device=device)
         res = model(*densify_batch(nodes, edges, n_at, max_nodes))
-        res = [r.cpu().numpy() for r in (res if isinstance(res, tuple) else (res,))]
+        res = [r.float().cpu().numpy() for r in (res if isinstance(res, tuple) else (res,))]
         for b, i in enumerate(sel):
             outs[i] = tuple(r[b] for r in res)
     return outs

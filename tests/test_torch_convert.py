@@ -136,3 +136,87 @@ def test_state_dict_loads_into_the_port_model():
     for m, prefix in enumerate(tconvert.ENCODER_TORCH_PREFIXES):
         got = getattr(model, prefix).layers[1].linear1.weight.detach().numpy()
         np.testing.assert_array_equal(got, w[m].T)
+
+
+# ---------------------------------------------------------------------------
+# the reference's PyTorch checkpoints
+# ---------------------------------------------------------------------------
+
+MF = "linear_embedding_MF.embedding.weight"
+
+
+def test_from_torch_state_dict_reads_the_jax_export_of_phase3():
+    """JAX's ``to_torch_state_dict`` of phase3, read by the port, is the
+    port's phase3 state dict; the MF table's 213th row comes back zero."""
+    cfg, params, sd = _phase3()
+    ours = tconvert.from_torch_state_dict(cfg, jconvert.to_torch_state_dict(cfg, params))
+    assert set(ours) == set(sd)
+    for k, v in sd.items():
+        got = ours[k]
+        assert got.dtype == torch.float32 and got.shape == v.shape, k
+        if k == MF:
+            assert not got[212].any()
+            got, v = got[:212], v[:212]
+        assert torch.equal(got, v), k
+
+
+def test_to_torch_state_dict_equals_jax():
+    cfg, params, sd = _phase3()
+    ref = jconvert.to_torch_state_dict(cfg, params)
+    ours = tconvert.to_torch_state_dict(cfg, sd)
+    assert set(ours) == set(ref)
+    assert ours[MF].shape == (212, 128)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(ours[k].numpy(), np.asarray(v, np.float32), err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["pth", "lightning_ckpt"])
+def test_load_torch_checkpoint_reads_pth_and_lightning_ckpt(tmp_path, kind):
+    cfg = ModelConfig.small()
+    params = jmmt.init_params(cfg, jax.random.PRNGKey(5))
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in jconvert.to_torch_state_dict(cfg, params).items()}
+    path = str(tmp_path / ("m.pth" if kind == "pth" else "m.ckpt"))
+    if kind == "pth":
+        torch.save(sd, path)
+    else:  # Lightning wraps the model as ``self.model`` and adds its own entries
+        torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}, "epoch": 3,
+                    "global_step": 120, "hyper_parameters": {"lr": 1e-4}}, path)
+    ours = tconvert.load_torch_checkpoint(cfg, path)
+    ref = tconvert.from_jax_params(jconvert.load_torch_checkpoint(cfg, path))
+    assert set(ours) == set(ref)
+    for k, v in ref.items():
+        assert torch.equal(ours[k], v), k
+    model = tmmt.MultimodalTransformer(cfg)
+    model.load_state_dict(ours, strict=True)
+
+
+def test_cli_evaluate_takes_a_torch_checkpoint(tmp_path, monkeypatch):
+    """``evaluate --torch-checkpoint`` builds the model from the converted
+    checkpoint; ``--params`` wins when both are given."""
+    import contextlib
+    import io
+    import json
+
+    from multimodalspectraltransformer_torch import cli as tcli
+    from multimodalspectraltransformer_torch.train import checkpoint as tckpt
+
+    cfg = ModelConfig.small()
+    sd = tconvert.to_torch_state_dict(cfg, tmmt.init_model(cfg, seed=2, device="cpu").state_dict())
+    ckpt = str(tmp_path / "m.ckpt")
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}}, ckpt)
+    other = tmmt.init_model(cfg, seed=9, device="cpu")
+    msgpack_path = str(tmp_path / "p.msgpack")
+    tckpt.export_params_msgpack(other, msgpack_path)
+    built = []
+    real = tmmt.model_from_state_dict
+    monkeypatch.setattr(tmmt, "model_from_state_dict",
+                        lambda s, c, d: built.append(s[MF].clone()) or real(s, c, d))
+    argv = ["evaluate", "--small", "--synthetic", "2", "--device", "cpu", "--max-len", "12",
+            "--fanout", "2", "--multinom-runs", "1", "--rounds", "1", "--torch-checkpoint", ckpt]
+    for extra in ([], ["--params", msgpack_path]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert tcli.main(argv + extra) == 0
+        assert json.loads(out.getvalue().strip().splitlines()[-1])["n"] == 2
+    assert torch.equal(built[0][:212], sd[MF]) and not built[0][212].any()
+    assert torch.equal(built[1], other.state_dict()[MF])

@@ -363,3 +363,44 @@ def test_generation_metrics_on_gpu_match_cpu(cuda_device):
         chip_smoke.generation_metrics_card_vs_cpu(cuda_device, records)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_densify_batch_on_gpu_never_syncs_and_matches_cpu(cuda_device):
+    """``densify_batch`` on the card, under ``set_sync_debug_mode("error")``
+    (any host sync raises), equals the CPU's on a batch with padded edges,
+    repeated edges and a graph with none."""
+    from multimodalspectraltransformer_torch.chem.smiles import parse_smiles
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.sim import distill
+
+    cs = [distill.featurize_compact(parse_smiles(s)) for s in molrandom.random_corpus(64, seed=5)]
+    nodes, edges, n_at = (torch.from_numpy(np.stack([c[i] for c in cs])) for i in range(3))
+    edges[1, :2] = torch.tensor([[3, 3, 2], [3, 3, 2]], dtype=torch.int8)
+    edges[2] = -1
+    ref = distill.densify_batch(nodes, edges, n_at)
+    on_card = [x.to(cuda_device) for x in (nodes, edges, n_at)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = distill.densify_batch(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(ref, out):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["tanimoto", "cosine", "dot", "euclidean"])
+def test_vectordb_topk_on_gpu_matches_cpu_with_ties(cuda_device, metric):
+    """The stable top k on the card gives the CPU's indices, equal scores in
+    index order, on a Morgan DB where every molecule appears three times."""
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.eval import vectordb
+
+    db = vectordb.build_morgan_db(molrandom.random_corpus(300, seed=8) * 3)
+    q = db.vectors[:64]
+    s_cpu, i_cpu, _ = vectordb.query(db, q, k=50, metric=metric, device="cpu")
+    s_gpu, i_gpu, _ = vectordb.query(db, q, k=50, metric=metric, device=cuda_device)
+    np.testing.assert_array_equal(i_gpu, i_cpu)
+    np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-6, atol=1e-6 * np.abs(s_cpu).max())

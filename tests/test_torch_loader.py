@@ -204,3 +204,51 @@ def test_device_dataset_cap_from_the_environment(monkeypatch):
         is not None
     monkeypatch.delenv("MMT_DEVICE_DATASET_GB")
     assert tdp.Loader(trecs, TCFG, batch_size=4).device_dataset("cpu") is not None
+
+
+# ---------------------------------------------------------------------------
+# the reference's shipped test sets
+# ---------------------------------------------------------------------------
+
+def _write_testset(tmp_path) -> dict:
+    """Headerless ``SMILES,"[data]",sample-id`` CSVs in the reference's
+    per-modality payload forms: a row that does not parse, an id missing
+    from one modality, an id only one modality has, a short row."""
+    rows = {
+        "13C": [("CCO", "[58.2, 18.1]", "id_1"), ("CC(=O)O", "[177.0, 20.9]", "id_2"),
+                ("c1ccccc1", "[128.4]", "id_3"), ("CCN", "[not a list", "id_4")],
+        "HSQC": [("CCO", "[[3.69, 58.2], [1.22, 18.1]]", "id_1"),
+                 ("c1ccccc1", "[[7.26, 128.4]]", "id_3"), ("CCN", "[[2.7, 36.7]]", "id_4")],
+        "COSY": [("CCO", "[(3.69, 1.22), (1.22, 3.69)]", "id_1"), ("CC(=O)O", "[]", "id_2")],
+        "1H": [("CCO", "[(3.69, 2.0), (1.22, 3.0)]", "id_1"), ("CCN", "[(2.7, 2.0)]", "id_4"),
+               ("CCCl", "[(3.5, 2.0)]", "id_5"), ("CC",)],
+    }
+    paths = {}
+    for key, table in rows.items():
+        p = tmp_path / f"{key}.csv"
+        with open(p, "w", newline="") as f:
+            import csv
+
+            csv.writer(f).writerows(table)
+        paths[key] = str(p)
+    return {"csv_13c": paths["13C"], "csv_hsqc": paths["HSQC"], "csv_cosy": paths["COSY"],
+            "csv_1h": paths["1H"]}
+
+
+@pytest.mark.parametrize("limit", [0, 2])
+@pytest.mark.parametrize("modalities", ["all", "13c_hsqc"])
+def test_load_reference_testset_matches_jax(tmp_path, limit, modalities):
+    paths = _write_testset(tmp_path)
+    if modalities != "all":
+        paths = {k: paths[k] for k in ("csv_13c", "csv_hsqc")}
+    ref = jdp.load_reference_testset(limit=limit, **paths)
+    ours = tdp.load_reference_testset(limit=limit, **paths)
+    assert [dataclasses.asdict(r) for r in ours] == [dataclasses.asdict(r) for r in ref]
+    assert len(ours) == (limit or (5 if modalities == "all" else 4))
+
+
+def test_ref_testset_split_matches_jax():
+    ids = [f"ZINC{i:08d}" for i in range(200)] + ["", "id_1", "x" * 50]
+    ours = [tdp.ref_testset_split(s) for s in ids]
+    assert ours == [jdp.ref_testset_split(s) for s in ids]
+    assert 60 < ours.count("adapt") < 140

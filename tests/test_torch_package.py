@@ -14,11 +14,11 @@ import torch
 from multimodalspectraltransformer_torch import cli, serve
 from multimodalspectraltransformer_torch.data.pipeline import Loader
 from multimodalspectraltransformer_torch.decode import samplers
-from multimodalspectraltransformer_torch.eval import harness
+from multimodalspectraltransformer_torch.eval import harness, vectordb
 from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
 from multimodalspectraltransformer_torch.rank import clip, matching
-from multimodalspectraltransformer_torch.sim import factory
+from multimodalspectraltransformer_torch.sim import distill, factory
 from multimodalspectraltransformer_torch.train import contrastive, improvement_cycle, loop, molgen
 from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
@@ -45,14 +45,17 @@ PORT_MODULES = [
               "data.samplers", "models.layers", "train.contrastive", "train.loss", "train.state",
               "train.step", "train.loop", "train.checkpoint", "train.molgen",
               "train.improvement_cycle", "serve", "serve.app", "serve.jobs", "serve.plots",
-              "serve.svg", "cli")
+              "serve.svg", "cli", "eval.vectordb", "eval.umap", "eval.clustering", "sim.dft",
+              "utils.profiling", "utils.roofline")
 ]
-PORT_SCRIPTS = [os.path.join(REPO, "scripts", "torch_accuracy_report.py"),
-                os.path.join(REPO, "chip_smoke.py")]
+PORT_SCRIPTS = [os.path.join(REPO, "scripts", n) for n in (
+    "torch_accuracy_report.py", "torch_train_sim_models.py", "torch_heldout_precision.py")]
+PORT_SCRIPTS.append(os.path.join(REPO, "chip_smoke.py"))
 
 _BLOCKED_IMPORT = r"""
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "ninja", "optax", "orbax", "pandas")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "ninja", "optax", "orbax", "pandas",
+           "sklearn", "matplotlib")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -94,7 +97,7 @@ def test_port_sources_never_name_jax_imports():
     file)."""
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|ninja|pandas|"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack|ml_dtypes|ninja|pandas|"
                      r"multimodalspectraltransformer_tpu)\b", re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_timing.py",
                                              os.path.join("scripts", "torch_kernel_times.py"))]
@@ -157,6 +160,14 @@ ENTRY_POINTS = {
     "retrieval_accuracy": lambda: contrastive.retrieval_accuracy(
         None, MMTConfig(model=ModelConfig.small()), {}, []),
     "cli_train_clip": lambda: cli.main(["train-clip", "--synthetic", "4"]),
+    "train_shift_model": lambda: distill.train_shift_model({"n_atoms": np.zeros(2)}),
+    "train_ir_model": lambda: distill.train_ir_model({"n_atoms": np.zeros(2)}),
+    "build_model_db": lambda: vectordb.build_model_db([], mmt.MultimodalTransformer(
+        ModelConfig.small())),
+    "vectordb_query": lambda: vectordb.query(vectordb.VectorDB(["C"], np.ones((1, 8))),
+                                             np.ones((1, 8))),
+    "cli_vectorize": lambda: cli.main(["vectorize", "--smiles", "never-read.txt",
+                                       "--out", "never-written"]),
 }
 
 
