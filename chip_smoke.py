@@ -94,7 +94,32 @@ Phases, one line of output each (or a few):
              a Morgan DB of 10,000 molecules queried 256 times; UMAP and the
              HTML plot; ``cli vectorize`` in a subprocess; phase3 through a
              Lightning-style torch checkpoint decoding as phase3. No kernel:
-             the JAX package computes all of it outside Pallas.
+             the JAX package computes all of it outside Pallas;
+10. parallel - data and tensor parallelism (``parallel/``), each rank a
+             process started by ``parallel/launch.py`` on this card, against
+             one process on it: (a) one rank over NCCL, ``run_training`` for
+             5 bf16 steps from phase3 with ``make_mesh()`` and without, bit
+             for bit; (b) two ranks over gloo as (data 2), one fp32 step
+             (TF32 off, dropout on) at full width from phase3, batch 64:
+             loss within 2e-5 relative, gradients within 5e-5 of each leaf's
+             largest magnitude, the updated parameters within 5e-5 of theirs
+             where the gradient is resolved; (c) the same step as (data 1,
+             model 2), 8 heads and half the feed-forward a rank, computed in
+             float64 on both sides (in fp32 the ranks' partial sums put some
+             inputs within rounding of 0 on the other side of ReLU's kink),
+             held to the same bounds; the median bf16 step of each
+             arrangement and the gradient all-reduce's ms; the host
+             loader's batches under stochastic featurization, each rank
+             building only its rows, in ms against one process;
+             (d) ``evaluate_molecules(mesh=...)`` on phase 3's 8 molecules
+             with phase3 and clip_r4, fan-out 128, round-shrink off on both
+             sides: at float32 greedy token-identical, every candidate set
+             equal, ``corr_sampling_prob`` within 1e-4 relative; in bf16 the
+             mols/s of the two ranks against one process and each rank's K1
+             and K2 launches (counters reset just before); (e) the sharded
+             device dataset: each rank's gathered batches are the rows of
+             the port's copy of JAX's ``epoch_row_batches_sharded``. Two
+             ranks time-slice one card: no figure here is a scaling figure.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -1977,6 +2002,423 @@ def tools_phase(dev, card: str, phase6_records, main) -> None:
     log(f"[tools] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data and tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the parallel steps: phase3 with dropout on, lr 3e-5: fp32 (TF32 off) for
+# data parallelism; float64 compute for tensor parallelism, whose partial sums
+# of the row-parallel layers add in another order, so that in fp32 a
+# feed-forward input within rounding of 0 can take the other side of ReLU's
+# kink and move its gradient by a whole term (float64 leaves no input that
+# near); phase 6's bf16 recipe for the timings. The bounds are
+# tests/test_multislice.py's.
+PAR_LOSS_RTOL, PAR_GRAD_TOL = 2e-5, 5e-5
+PAR_BATCH = 64
+
+
+def _par_cfgs():
+    """The fp32, float64 and bf16 step configurations."""
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig, TrainConfig
+
+    fp32 = MMTConfig(model=ModelConfig(), train=TrainConfig(learning_rate=3e-5))
+    fp64 = MMTConfig(model=ModelConfig(dtype="float64"), train=TrainConfig(learning_rate=3e-5))
+    bf16 = MMTConfig(model=ModelConfig(), train=TrainConfig(learning_rate=3e-5,
+                                                            mixed_precision=True))
+    return fp32, fp64, bf16
+
+
+def _rank_device():
+    """This rank's card (the launcher made it the current one), TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _sharded_start(cfg, batch, shard, dev):
+    """Phase3 on ``dev`` put on ``shard`` (``parallel.shard_model``; as it is
+    for None) and the shard's rows of ``batch`` there."""
+    from multimodalspectraltransformer_torch import parallel
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import mmt
+
+    model = mmt.load_model(PHASE3, cfg.model, device=dev)
+    rows = slice(None)
+    if shard is not None:
+        parallel.shard_model(model, shard)
+        rows = shard.rows(PAR_BATCH // shard.dp_size)
+    b = dp.to_device(dp.TrainBatch(type(batch.inputs)(*(x[rows] for x in batch.inputs)),
+                                   batch.trg_tokens[rows], batch.trg_fp[rows]), dev)
+    return model, b
+
+
+def _step_result(cfg, batch, shard, dev, seed: int = 5) -> dict:
+    """One train step from phase3 on ``shard``'s rows (the whole batch for
+    None): loss, and the whole gradients and updated parameters on the CPU."""
+    import torch
+
+    from multimodalspectraltransformer_torch import parallel
+    from multimodalspectraltransformer_torch.parallel.mesh import gather_tp
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+
+    model, b = _sharded_start(cfg, batch, shard, dev)
+    state, m = step.train_step(cfg, st.create_state(cfg.train, model), b, seed)
+    grads = {n: gather_tp(n, p.grad, shard).cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    params = {k: v.cpu() for k, v in parallel.gather_state_dict(model).items()}
+    del state, model
+    torch.cuda.empty_cache()
+    return dict(loss=float(m.loss), grads=grads, params=params)
+
+
+def _median_step_ms(cfg, batch, shard, dev, warmup: int = 3, timed: int = 8) -> dict:
+    """The median step time in ms (host clock around a step that ends in a
+    device sync) of ``timed`` steps after ``warmup`` on ``shard``'s rows, and
+    the peak memory; with more than one data-parallel rank also the median ms
+    of the gradient all-reduce alone on this rank's gradients."""
+    import torch
+
+    from multimodalspectraltransformer_torch.parallel import collectives
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+
+    model, b = _sharded_start(cfg, batch, shard, dev)
+    state = st.create_state(cfg.train, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step.train_step(cfg, state, b, 5)
+        float(m.loss)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = dict(step_ms=float(np.median(times[warmup:])), peak_bytes=torch.cuda.max_memory_allocated())
+    if shard is not None and shard.data_group is not None and shard.dp_size > 1:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        ar = []
+        for _ in range(warmup + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collectives.grad_all_reduce_(grads, shard)
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        out.update(all_reduce_ms=float(np.median(ar[warmup:])),
+                   all_reduce_bytes=4 * sum(g.numel() for g in grads))
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _harness_run(records, dcfg, dev, mesh=None, clip_bundle=None, warm: bool = False) -> dict:
+    """``evaluate_molecules`` on phase 3's records with phase3 and clip_r4
+    (``clip_block`` 10), seed 0, after a warm-up call when ``warm``; the K1
+    and K2 launches of the last call."""
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.ops import auction as k2
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+    from multimodalspectraltransformer_torch.rank import clip
+
+    model = mmt.load_model(PHASE3, device=dev)
+    bundle = clip_bundle or clip.load_bundle(CLIP_R4, device=dev)
+    run = dict(clip_bundle=bundle, clip_block=dcfg.multinom_runs, device=dev, mesh=mesh)
+    if warm:
+        harness.evaluate_molecules(records, model, dcfg, seed=1, **run)
+    k1.reset_launches()
+    k2.reset_launches()
+    results, summary = harness.evaluate_molecules(records, model, dcfg, seed=0, **run)
+    return dict(results=results, summary=summary, k1=k1.launches, k2=k2.launches)
+
+
+def _rank_nccl_training(records) -> dict:
+    """Check (a), in a world of one rank over NCCL: ``run_training`` for 5
+    bf16 steps from phase3, without a mesh and with ``make_mesh()``; both
+    runs' losses and parameters."""
+    import torch
+
+    from multimodalspectraltransformer_torch import parallel
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import convert
+    from multimodalspectraltransformer_torch.train import loop
+
+    dev = _rank_device()
+    _, _, bf16 = _par_cfgs()
+    init = convert.from_jax_params(convert.read_msgpack(PHASE3))
+    opts = dp.FeaturizeOptions(use_given_smiles_form=True)
+    out = {}
+    for name, mesh in (("plain", None), ("mesh", parallel.make_mesh())):
+        loader = dp.Loader(records, bf16.model, batch_size=PAR_BATCH, opts=opts)
+        t0 = time.perf_counter()
+        res = loop.run_training(bf16, loader, init_params=init, mesh=mesh, max_steps=5, device=dev)
+        out[name] = dict(losses=[h["train_loss"] for h in res.metrics.history],
+                         params={k: v.cpu() for k, v in res.state.model.state_dict().items()},
+                         secs=time.perf_counter() - t0,
+                         backend=str(torch.distributed.get_backend()))
+    return out
+
+
+HOST_OPTS = dict(blank_percentage=0.2, randomize_smiles=True, hsqc_noise_max=3)
+
+
+def _host_loader_ms(records, mcfg, part=None, n_batches: int = 2) -> float:
+    """Host ms a batch of ``Loader.epoch`` (``part``: a rank's rows) under
+    stochastic featurization, over the first ``n_batches`` of epoch 0."""
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+
+    ldr = dp.Loader(records, mcfg, batch_size=PAR_BATCH, seed=1,
+                    opts=dp.FeaturizeOptions(**HOST_OPTS))
+    it = ldr.epoch(0, part)
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        next(it)
+    return (time.perf_counter() - t0) * 1e3 / n_batches
+
+
+def _rank_parallel(batch, records8, records_ds) -> dict:
+    """Checks (b)-(e) on one of two ranks sharing the card over gloo."""
+    import dataclasses
+
+    import torch
+
+    from multimodalspectraltransformer_torch import parallel
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.rank import clip
+    from multimodalspectraltransformer_torch.utils.config import DecodeConfig
+
+    dev = _rank_device()
+    rank = torch.distributed.get_rank()
+    fp32, fp64, bf16 = _par_cfgs()
+    dp_mesh, tp_mesh = parallel.make_mesh(data=2), parallel.make_mesh(data=1, model=2)
+    out = dict(rank=rank)
+    # (b), (c): one fp32 DP and one float64 TP step; then the bf16 timings
+    for name, mesh, cfg in (("dp", dp_mesh, fp32), ("tp", tp_mesh, fp64)):
+        shard = parallel.rank_shard(mesh)
+        step = _step_result(cfg, batch, shard, dev)
+        out[name] = step if rank == 0 else dict(loss=step["loss"])
+        out[name + "_timing"] = _median_step_ms(bf16, batch, shard, dev)
+    # (d): the sharded harness, float32 then bf16 (timed, launches counted)
+    bundle = clip.load_bundle(CLIP_R4, device=dev)
+    dcfg = DecodeConfig(max_len=64, fanout=128, multinom_runs=10, max_temp_rounds=5,
+                        compute_dtype="bfloat16", round_shrink=False)
+    h32 = _harness_run(records8, dataclasses.replace(dcfg, compute_dtype=None), dev, dp_mesh,
+                       bundle)
+    h16 = _harness_run(records8, dcfg, dev, dp_mesh, bundle, warm=True)
+    out["harness_fp32"] = dict(results=h32["results"], summary=h32["summary"])
+    out["harness_bf16"] = dict(summary=h16["summary"], k1=h16["k1"], k2=h16["k2"])
+    # the host loader under stochastic featurization: this rank's rows
+    out["host_loader_ms"] = _host_loader_ms(records_ds, fp32.model, (rank, 2))
+    # (e): the sharded device dataset
+    ldr = dp.Loader(records_ds, fp32.model, batch_size=PAR_BATCH, seed=1)
+    dd = ldr.device_dataset_sharded(dp_mesh, dev)
+    shard = parallel.rank_shard(dp_mesh)
+    rows = shard.rows(PAR_BATCH // 2)
+    got = []
+    for idx in ldr.epoch_row_batches_sharded(0, 2):
+        b = dp.gather_rows(dd, idx[rows])
+        got.append((idx, b.trg_tokens.cpu(), b.inputs.src_13c.cpu(), b.trg_fp.cpu()))
+    out["dataset"] = dict(batches=got, kept=ldr._device_kept_smiles, index=shard.dp_index)
+    return out
+
+
+def _compare_parallel(label: str, ref: dict, got: dict, lr: float) -> None:
+    """A parallel step (``got``) against one process (``ref``): the loss
+    within 2e-5 relative, each gradient leaf within 5e-5 of its largest
+    magnitude, the parameters after AdamW within 5e-5 of their leaf's largest
+    magnitude wherever the gradient is resolved (``resolved_gradient``: AdamW
+    turns an unresolved gradient's rounding into a step of either sign) and
+    within 2 lr elsewhere, where under 20% of the elements may lie. Raises
+    when they differ."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_errs = {k: ((got["grads"][k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                 for k, g in ref["grads"].items()}
+    grad_err = max(grad_errs.values())
+    worst_res = worst = 0.0
+    n_all = n_unres = 0
+    for k, p in ref["params"].items():
+        g = ref["grads"].get(k)
+        diff = (got["params"][k] - p).abs()
+        worst = max(worst, diff.max().item())
+        n_all += p.numel()
+        if g is None:
+            continue
+        res = resolved_gradient(g, got["grads"][k])
+        n_unres += int((~res).sum())
+        if res.any():
+            worst_res = max(worst_res, (diff[res].max() / p.abs().max().clamp_min(1e-30)).item())
+    ok = (loss_rel <= PAR_LOSS_RTOL and grad_err <= PAR_GRAD_TOL and worst_res <= PAR_GRAD_TOL
+          and worst <= 2 * lr and n_unres < 0.2 * n_all)
+    leaf = max(grad_errs, key=grad_errs.get)
+    log(f"{label}: loss {got['loss']:.6f} vs {ref['loss']:.6f} (rel {loss_rel:.2e}, tol 2e-5); "
+        f"gradients within {grad_err:.2e} of their leaf's max (at {leaf}; tol 5e-5); parameters "
+        f"within {worst_res:.2e} of their leaf's max where resolved (tol 5e-5), {worst:.2e} over "
+        f"all (tol {2 * lr:.0e}, {n_unres} of {n_all} unresolved) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} differs from one process")
+
+
+def _compare_harness(label: str, ref: list, got: list) -> None:
+    """Greedy token for token, each molecule's candidate set, and
+    ``corr_sampling_prob`` within 1e-4 relative. Where the candidate sets
+    differ, the molecules and their set sizes are printed."""
+    greedy = [r.greedy for r in got] == [r.greedy for r in ref]
+    cands = lambda rs: [sorted(c.smiles for c in r.candidates) for r in rs]
+    bad = [i for i, (a, b) in enumerate(zip(cands(got), cands(ref))) if a != b]
+    corr = max(abs(a.corr_sampling_prob - b.corr_sampling_prob)
+               / max(abs(b.corr_sampling_prob), 1e-30) for a, b in zip(got, ref))
+    ok = greedy and not bad and corr <= 1e-4 and len(got) == len(ref)
+    log(f"{label}: greedy {'token-identical' if greedy else 'DIFFERS'}, candidate sets "
+        f"{'equal' if not bad else f'DIFFER at molecules {bad}'} "
+        f"({sum(len(r.candidates) for r in got)} candidates), corr_sampling_prob within "
+        f"{corr:.2e} relative (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    for i in bad:
+        log(f"[parallel]   molecule {i}: {len(got[i].candidates)} candidates vs "
+            f"{len(ref[i].candidates)}; rounds {got[i].sampling_rounds} vs {ref[i].sampling_rounds}")
+    if not ok:
+        raise AssertionError(f"{label} differs from one process")
+
+
+def parallel_phase(dev, card: str, phase6_records, main) -> None:
+    """Phase 10 (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.data import samplers
+    from multimodalspectraltransformer_torch.parallel.launch import launch
+    from multimodalspectraltransformer_torch.parallel.mesh import RankShard
+
+    records, _, dcfg = main
+    log(f"[parallel] {card}; two ranks share this card over gloo, so every two-rank figure "
+        "below is a time-slicing figure, not a scaling one")
+    t_phase = time.perf_counter()
+    fp32, fp64, bf16 = _par_cfgs()
+    batch = dp.collate([dp.featurize(r, fp32.model) for r in dp.synthetic_dataset(PAR_BATCH, seed=11)])
+    opts = dp.FeaturizeOptions(use_given_smiles_form=True)
+    n_val = max(1, int(len(phase6_records) * 0.1))
+    train_recs = dp.augment_records(phase6_records[:-n_val], 2, seed=0)[: 5 * PAR_BATCH]
+    ds_recs = list(phase6_records[:2 * PAR_BATCH + 3])  # 131 rows over 2 shards: one dropped
+
+    # one-process references on this card
+    ref = {"dp": _step_result(fp32, batch, None, dev), "tp": _step_result(fp64, batch, None, dev),
+           "timing": _median_step_ms(bf16, batch, None, dev)}
+    # what drawing dropout at the global shape costs a data-parallel rank: a
+    # bf16 step on 32 rows with masks drawn for them, and the same rows as rank
+    # 0 of 2 (its masks drawn for 64 rows and sliced; no groups, so no
+    # collective runs)
+    half = dp.TrainBatch(type(batch.inputs)(*(x[: PAR_BATCH // 2] for x in batch.inputs)),
+                         batch.trg_tokens[: PAR_BATCH // 2], batch.trg_fp[: PAR_BATCH // 2])
+    ref["draw_local"] = _median_step_ms(bf16, half, None, dev)
+    ref["draw_global"] = _median_step_ms(bf16, batch, RankShard(0, 2), dev)
+    h_dcfg = dataclasses.replace(dcfg, round_shrink=False)
+    ref["h32"] = _harness_run(records, dataclasses.replace(h_dcfg, compute_dtype=None), dev)
+    ref["h16"] = _harness_run(records, h_dcfg, dev, warm=True)
+    torch.cuda.empty_cache()
+    log(f"[parallel] one process: fp32 step loss {ref['dp']['loss']:.6f}, float64 "
+        f"{ref['tp']['loss']:.6f}, bf16 step median "
+        f"{ref['timing']['step_ms']:.3f} ms at batch {PAR_BATCH}; harness bf16 "
+        f"{ref['h16']['summary'].mols_per_sec:.3f} mols/s (K1 {ref['h16']['k1']}, K2 "
+        f"{ref['h16']['k2']}); references took {time.perf_counter() - t_phase:.1f} s")
+    gib = 1 / (1 << 30)
+    log(f"[parallel] dropout drawn for the global batch: a bf16 step on {PAR_BATCH // 2} rows "
+        f"{ref['draw_local']['step_ms']:.3f} ms, peak {ref['draw_local']['peak_bytes'] * gib:.3f} "
+        f"GiB with their own masks; {ref['draw_global']['step_ms']:.3f} ms, peak "
+        f"{ref['draw_global']['peak_bytes'] * gib:.3f} GiB as rank 0 of 2 (masks of "
+        f"{PAR_BATCH} rows, sliced); {card}")
+
+    # (a) NCCL, one rank
+    t0 = time.perf_counter()
+    a = launch("chip_smoke:_rank_nccl_training", 1, args=(train_recs,), device="cuda",
+               backend="nccl", timeout=300)[0]
+    same_loss = a["plain"]["losses"] == a["mesh"]["losses"]
+    same_params = all(torch.equal(v, a["mesh"]["params"][k]) for k, v in a["plain"]["params"].items())
+    log(f"[parallel] (a) one rank over {a['mesh']['backend']}: run_training 5 bf16 steps with "
+        f"make_mesh() vs without: losses {'bit-identical' if same_loss else 'DIFFER'} "
+        f"({a['mesh']['losses'][0]:.6f} ... {a['mesh']['losses'][-1]:.6f}), parameters "
+        f"{'bit-identical' if same_params else 'DIFFER'}; {a['mesh']['secs']:.2f} s vs "
+        f"{a['plain']['secs']:.2f} s; the launch took {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if same_loss and same_params else 'FAIL'}")
+    if not (same_loss and same_params and len(a["mesh"]["losses"]) == 5):
+        raise AssertionError("a one-rank NCCL mesh trains otherwise than no mesh")
+
+    # (b)-(e): two ranks on this card over gloo
+    t0 = time.perf_counter()
+    out = launch("chip_smoke:_rank_parallel", 2, args=(batch, records, ds_recs), device="cuda",
+                 backend="gloo", timeout=600)
+    log(f"[parallel] two-rank launch over gloo took {time.perf_counter() - t0:.1f} s")
+    r0 = out[0]
+    lr = fp32.train.learning_rate
+    heads, ffn = fp32.model.num_heads // 2, fp32.model.ffn_dim // 2
+    for name, what in (("dp", f"(b) DP, (data 2), {PAR_BATCH // 2} rows a rank, one fp32 step"),
+                       ("tp", f"(c) TP, (data 1, model 2), {heads} heads and {ffn} feed-forward "
+                              "columns a rank, one float64 step")):
+        if out[1][name]["loss"] != r0[name]["loss"]:
+            raise AssertionError(f"{name}: the ranks report other losses")
+        _compare_parallel(f"[parallel] {what} from phase3 (dropout on, batch {PAR_BATCH})",
+                          ref[name], r0[name], lr)
+    rows = []
+    for name in ("dp", "tp"):
+        t = [o[name + "_timing"] for o in out]
+        step_ms = max(x["step_ms"] for x in t)
+        extra = ""
+        if "all_reduce_ms" in t[0]:
+            ar = max(x["all_reduce_ms"] for x in t)
+            extra = (f", gradient all-reduce {ar:.3f} ms for {t[0]['all_reduce_bytes'] / 1e6:.1f} MB "
+                     f"({t[0]['all_reduce_bytes'] / ar / 1e6:.2f} GB/s)")
+        log(f"[parallel] bf16 step at batch {PAR_BATCH}, {name.upper()} over 2 ranks: median "
+            f"{step_ms:.3f} ms (slowest rank) against {ref['timing']['step_ms']:.3f} ms in one "
+            f"process{extra}; {card}")
+    host_ms = _host_loader_ms(ds_recs, fp32.model)
+    log(f"[parallel] host loader, stochastic featurization ({HOST_OPTS}): "
+        f"{host_ms:.1f} ms a batch of {PAR_BATCH} in one process; "
+        + ", ".join(f"rank {r}: {o['host_loader_ms']:.1f} ms for its {PAR_BATCH // 2} rows"
+                    for r, o in enumerate(out))
+        + " (each rank still draws every row's random stream and checks its chemistry)")
+    # (d)
+    _compare_harness(f"[parallel] (d) sharded harness, {len(records)} molecules over 2 ranks, "
+                     f"float32, fan-out {dcfg.fanout}, round-shrink off on both sides",
+                     ref["h32"]["results"], r0["harness_fp32"]["results"])
+    mps = r0["harness_bf16"]["summary"].mols_per_sec
+    launches = [(o["harness_bf16"]["k1"], o["harness_bf16"]["k2"]) for o in out]
+    log(f"[parallel] (d) bf16: {mps:.3f} mols/s over 2 ranks (slowest rank's clock) against "
+        f"{ref['h16']['summary'].mols_per_sec:.3f} in one process; launches per rank "
+        + ", ".join(f"rank {r}: K1={k1n} K2={k2n}" for r, (k1n, k2n) in enumerate(launches))
+        + f"; {card}")
+    if any(k1n <= 0 or k2n <= 0 for k1n, k2n in launches):
+        raise AssertionError("a rank of the sharded harness launched K1 or K2 no time")
+    # (e): the rows the port's own copy of JAX's epoch_row_batches_sharded picks
+    ldr = dp.Loader(ds_recs, fp32.model, batch_size=PAR_BATCH, seed=1)
+    big, kept = ldr._featurize_all(1 << 40)
+    smiles = [ds_recs[int(i)].smiles for i in kept]
+    Rl, bsl = len(smiles) // 2, PAR_BATCH // 2
+    orders = [samplers.epoch_order(ldr.order_strategy, smiles[d * Rl : (d + 1) * Rl], bsl,
+                                   ldr.seed * 1_000_003 + d, 0) for d in range(2)]
+    host = dp.to_device(big, "cpu")
+    n_checked = 0
+    for o in out:
+        d = o["dataset"]["index"]
+        if o["dataset"]["kept"] != smiles[: 2 * Rl] or len(o["dataset"]["batches"]) != Rl // bsl:
+            raise AssertionError("the sharded dataset keeps other rows")
+        for i, (idx, trg, c13, fp) in enumerate(o["dataset"]["batches"]):
+            want = np.concatenate([np.asarray(orders[e][i * bsl : (i + 1) * bsl]) for e in range(2)])
+            if not np.array_equal(idx, want):
+                raise AssertionError("epoch_row_batches_sharded picks other rows")
+            exp = dp.gather_rows(host, d * Rl + want[d * bsl : (d + 1) * bsl])
+            if not (torch.equal(trg, exp.trg_tokens) and torch.equal(c13, exp.inputs.src_13c)
+                    and torch.equal(fp, exp.trg_fp)):
+                raise AssertionError("a rank's gathered batch differs from its rows")
+            n_checked += 1
+    log(f"[parallel] (e) sharded device dataset, {len(ds_recs)} records over 2 ranks "
+        f"({Rl} rows a partition): {n_checked} gathered batches equal the rows of the port's "
+        "copy of epoch_row_batches_sharded ok")
+    log(f"[parallel] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -2034,6 +2476,8 @@ def main() -> int:
     serve_phase(dev, card)
     contrastive_phase(dev, card, phase6_records, (records, model, dcfg))
     tools_phase(dev, card, phase6_records, (records, model, dcfg))
+    torch.cuda.empty_cache()  # the ranks of phase 10 share this card
+    parallel_phase(dev, card, phase6_records, (records, model, dcfg))
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

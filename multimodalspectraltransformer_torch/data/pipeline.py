@@ -316,6 +316,50 @@ def pollute_hsqc(
 FEATURIZE_SCHEMA_VERSION = 2  # v2: compact storage dtypes (compact_train_batch)
 
 
+def _chemistry(rec: SampleRecord, mcfg: ModelConfig, pre: Optional[tuple] = None
+               ) -> Optional[tuple]:
+    """``(canonical_smiles, formula, exact_mw, morgan_fp)`` of a record, or
+    None where the chemistry fails (``featurize`` then skips the record)."""
+    if pre is not None:
+        c_smi, mf, mw, fp = pre
+        if mw is not None and np.isnan(mw):
+            mw = None
+    else:
+        c_smi = chem.canonicalize(rec.smiles)
+        if c_smi is None:
+            return None
+        mf = chem.mol_formula(c_smi)
+        mw = chem.exact_mol_wt(c_smi)
+        fp = chem.morgan_fp(c_smi, 2, mcfg.fingerprint_size)
+    if c_smi is None or mf is None or mw is None or fp is None:
+        return None
+    return c_smi, mf, mw, fp
+
+
+def _draws(rec: SampleRecord, c_smi: str, opts: FeaturizeOptions, rng: random.Random) -> tuple:
+    """Every random draw ``featurize`` makes for one record, in its order: the
+    SMILES form, then which spectra stay (not blanked) and the polluted HSQC
+    peaks. Returns ``(smiles, keep_1h, keep_13c, hsqc_peaks or None,
+    keep_cosy, keep_ir)``."""
+    if opts.randomize_smiles:
+        rnd = chem.randomize(c_smi, rng)
+        if rnd is not None:
+            c_smi = rnd
+    elif opts.use_given_smiles_form:
+        c_smi = rec.smiles  # pre-randomized variant (validated by the chemistry)
+
+    def blanked() -> bool:
+        return rng.random() < opts.blank_percentage
+
+    keep_1h = rec.h1 is not None and not blanked()
+    keep_13c = rec.c13 is not None and not blanked()
+    hsqc = (pollute_hsqc(rec.hsqc, opts, rng)
+            if rec.hsqc is not None and not blanked() else None)
+    keep_cosy = rec.cosy is not None and not blanked()
+    keep_ir = opts.use_ir and rec.ir is not None and not blanked()
+    return c_smi, keep_1h, keep_13c, hsqc, keep_cosy, keep_ir
+
+
 def featurize(
     rec: SampleRecord,
     mcfg: ModelConfig,
@@ -336,34 +380,17 @@ def featurize(
     rng = rng or random.Random(0)
     P = mcfg.spectrum_points
 
-    if pre is not None:
-        c_smi, mf, mw, fp = pre
-        if mw is not None and np.isnan(mw):
-            mw = None
-    else:
-        c_smi = chem.canonicalize(rec.smiles)
-        if c_smi is None:
-            return None
-        mf = chem.mol_formula(c_smi)
-        mw = chem.exact_mol_wt(c_smi)
-        fp = chem.morgan_fp(c_smi, 2, mcfg.fingerprint_size)
-    if c_smi is None or mf is None or mw is None or fp is None:
+    props = _chemistry(rec, mcfg, pre)
+    if props is None:
         return None
-    if opts.randomize_smiles:
-        rnd = chem.randomize(c_smi, rng)
-        if rnd is not None:
-            c_smi = rnd
-    elif opts.use_given_smiles_form:
-        c_smi = rec.smiles  # pre-randomized variant (validated above)
+    _, mf, mw, fp = props
+    c_smi, keep_1h, keep_13c, hsqc_peaks, keep_cosy, keep_ir = _draws(rec, props[0], opts, rng)
 
     out: dict = {}
     active = []
 
-    def blanked() -> bool:
-        return rng.random() < opts.blank_percentage
-
     # 1H: [ppm/10, intensity]
-    if rec.h1 is not None and not blanked():
+    if keep_1h:
         pts = [[s[0] / 10.0, s[1]] for s in rec.h1]
         out["src_1h"], out["mask_1h"] = _pad_points(pts, P, 2)
         active.append("1H")
@@ -371,7 +398,7 @@ def featurize(
         out["src_1h"], out["mask_1h"] = np.zeros((P, 2), np.float32), np.ones(P, np.int32)
 
     # 13C: ppm/200
-    if rec.c13 is not None and not blanked():
+    if keep_13c:
         pts = [s / 200.0 for s in rec.c13]
         out["src_13c"], out["mask_13c"] = _pad_points(pts, P, 1)
         active.append("13C")
@@ -379,8 +406,7 @@ def featurize(
         out["src_13c"], out["mask_13c"] = np.zeros(P, np.float32), np.ones(P, np.int32)
 
     # HSQC: [H/10, C/200]
-    if rec.hsqc is not None and not blanked():
-        hsqc_peaks = pollute_hsqc(rec.hsqc, opts, rng)
+    if hsqc_peaks is not None:
         pts = [[p[0] / 10.0, p[1] / 200.0] for p in hsqc_peaks]
         out["src_hsqc"], out["mask_hsqc"] = _pad_points(pts, P, 2)
         active.append("HSQC")
@@ -388,7 +414,7 @@ def featurize(
         out["src_hsqc"], out["mask_hsqc"] = np.zeros((P, 2), np.float32), np.ones(P, np.int32)
 
     # COSY: [H/10, H/10]
-    if rec.cosy is not None and not blanked():
+    if keep_cosy:
         pts = [[p[0] / 10.0, p[1] / 10.0] for p in rec.cosy]
         out["src_cosy"], out["mask_cosy"] = _pad_points(pts, P, 2)
         active.append("COSY")
@@ -396,7 +422,7 @@ def featurize(
         out["src_cosy"], out["mask_cosy"] = np.zeros((P, 2), np.float32), np.ones(P, np.int32)
 
     # IR
-    if opts.use_ir and rec.ir is not None and not blanked():
+    if keep_ir:
         out["src_ir"] = bin_ir(rec.ir, mcfg.ir_bins).astype(np.float32)
         active.append("IR")
     else:
@@ -463,6 +489,13 @@ class Loader:
     ``epoch_row_batches`` + ``gather_rows`` assemble the same epoch's batches
     there. ``order_strategy``: "shuffle", "weight_sorted" or "tanimoto"
     (``data/samplers.py``).
+
+    Sharding, as the JAX package's: host ``host_id`` of ``host_count`` takes a
+    contiguous, truncated block of every epoch order (``_host_slice``);
+    ``epoch(..., part=(i, n))`` yields a rank's rows of each global batch;
+    ``device_dataset_sharded`` keeps a rank's partition of the featurized rows
+    on its device, and ``epoch_row_batches_sharded`` draws each partition's
+    rows of every batch.
     """
 
     records: list
@@ -470,42 +503,98 @@ class Loader:
     batch_size: int
     opts: FeaturizeOptions = field(default_factory=FeaturizeOptions)
     seed: int = 0
+    host_id: int = 0
+    host_count: int = 1
     drop_remainder: bool = True
     order_strategy: str = "shuffle"
     cache_features: bool = True
     _feature_cache: dict = field(default_factory=dict, repr=False)
+    _canonical_cache: dict = field(default_factory=dict, init=False, repr=False)
     _device_dataset: Optional[TrainBatch] = field(default=None, init=False, repr=False)
     _device_kept_smiles: Optional[list] = field(default=None, init=False, repr=False)
+    _device_partition: Optional[TrainBatch] = field(default=None, init=False, repr=False)
+    _device_shard_extent: Optional[int] = field(default=None, init=False, repr=False)
 
     def __len__(self) -> int:
-        return len(self.records) // self.batch_size
+        return len(self.records) // self.host_count // self.batch_size
 
     def _stochastic(self) -> bool:
         return (self.opts.blank_percentage > 0 or self.opts.randomize_smiles
                 or self.opts.hsqc_noise_max > 0)
 
-    def epoch(self, epoch: int) -> Iterator[TrainBatch]:
+    def _host_slice(self, order):
+        """This host's share of an epoch order: a contiguous block (the ordering
+        strategies build their structure as contiguous batch runs, which a
+        stride would interleave away), truncated to the common per-host length
+        (unequal lengths would leave one host in a step the others never
+        join)."""
+        if self.host_count <= 1:
+            return order
+        per_host = len(order) // self.host_count
+        return order[self.host_id * per_host : (self.host_id + 1) * per_host]
+
+    def epoch(self, epoch: int, part: Optional[tuple[int, int]] = None) -> Iterator[TrainBatch]:
+        """The epoch's batches. With ``part=(i, n)``, block ``i`` of ``n``
+        contiguous rows of each (the rows a data-parallel rank trains on). The
+        records that fail their chemistry and the random stream decide each
+        batch, so every record of the order still takes its chemistry (its
+        canonical form is kept across epochs) and its draws (``_draws``); a
+        row is featurized only where it falls in the block, from the stream's
+        state at that row, and so equals that row of the whole batch."""
         order = samplers.epoch_order(self.order_strategy, [r.smiles for r in self.records],
                                      self.batch_size, self.seed, epoch)
-        rng = random.Random(self.seed * 1_000_003 + epoch * 1009)
+        order = self._host_slice(order)
+        rng = random.Random(self.seed * 1_000_003 + epoch * 1009 + self.host_id)
         use_cache = self.cache_features and not self._stochastic()
-        buf: list[dict] = []
+        # features, or with ``part`` (record index, stream state, chemistry)
+        buf: list = []
         for idx in order:
             idx = int(idx)
-            if use_cache and idx in self._feature_cache:
-                feat = self._feature_cache[idx]
+            if part is None:
+                feat = self._features(idx, rng, use_cache)
+                if feat is None:
+                    continue
+                buf.append(feat)
             else:
-                feat = featurize(self.records[idx], self.mcfg, self.opts, rng)
-                if use_cache:
-                    self._feature_cache[idx] = feat
-            if feat is None:
-                continue
-            buf.append(feat)
+                c_smi, props = self._canonical(idx)
+                if c_smi is None:
+                    continue
+                buf.append((idx, rng.getstate(), props))
+                _draws(self.records[idx], c_smi, self.opts, rng)
             if len(buf) == self.batch_size:
-                yield collate(buf)
+                yield self._collate(buf, part, use_cache)
                 buf = []
         if buf and not self.drop_remainder:
-            yield collate(buf)
+            yield self._collate(buf, part, use_cache)
+
+    def _features(self, idx: int, rng: random.Random, use_cache: bool,
+                  pre: Optional[tuple] = None) -> Optional[dict]:
+        if use_cache and idx in self._feature_cache:
+            return self._feature_cache[idx]
+        feat = featurize(self.records[idx], self.mcfg, self.opts, rng, pre)
+        if use_cache:
+            self._feature_cache[idx] = feat
+        return feat
+
+    def _canonical(self, idx: int) -> tuple[Optional[str], Optional[tuple]]:
+        """Record ``idx``'s canonical SMILES (None where its chemistry fails)
+        and, when this call computed it, its whole chemistry."""
+        if idx in self._canonical_cache:
+            return self._canonical_cache[idx], None
+        props = _chemistry(self.records[idx], self.mcfg)
+        self._canonical_cache[idx] = None if props is None else props[0]
+        return self._canonical_cache[idx], props
+
+    def _collate(self, buf: list, part: Optional[tuple[int, int]], use_cache: bool
+                 ) -> TrainBatch:
+        if part is None:
+            return collate(buf)
+        feats = []
+        for idx, state, props in _part(buf, part):
+            rng = random.Random()
+            rng.setstate(state)
+            feats.append(self._features(idx, rng, use_cache, props))
+        return collate(feats)
 
     # ---- device-resident dataset -----------------------------------------
     #
@@ -662,6 +751,60 @@ class Loader:
         self._device_dataset = to_device(big, dev)
         return self._device_dataset
 
+    def device_dataset_sharded(self, mesh, device: DeviceLike = None,
+                               max_bytes: Optional[int] = None) -> Optional[TrainBatch]:
+        """This rank's partition of the featurized rows on ``device``: the
+        rows are split into ``data_extent(mesh)`` equal partitions (the
+        remainder, under one row a partition, dropped) and data-parallel rank
+        ``i`` holds partition ``i``. ``max_bytes`` caps a partition. None as
+        ``device_dataset`` returns None, or when there are fewer rows than
+        partitions. Batches come from ``epoch_row_batches_sharded`` and
+        ``gather_rows`` on the partition, without a collective."""
+        from ..parallel.mesh import data_extent, rank_shard
+
+        ext = data_extent(mesh)
+        if self._device_partition is not None and self._device_shard_extent == ext:
+            return self._device_partition
+        dev = resolve_device(device)
+        if max_bytes is None:
+            max_bytes = int(float(os.environ.get("MMT_DEVICE_DATASET_GB", "6")) * (1 << 30))
+        out = self._featurize_all(max_bytes * ext)
+        if out is None:
+            return None
+        big, kept = out
+        R = big.trg_tokens.shape[0]
+        Rl = R // ext
+        if Rl == 0:
+            print("device_dataset_sharded: fewer rows than shards; host loader")
+            return None
+        rows = rank_shard(mesh).rows(Rl)
+        self._device_kept_smiles = [self.records[int(i)].smiles for i in kept[: Rl * ext]]
+        self._device_shard_extent = ext
+        local = TrainBatch(MMTBatch(*(x[rows] for x in big.inputs)), big.trg_tokens[rows],
+                           big.trg_fp[rows])
+        self._device_partition = to_device(local, dev)
+        return self._device_partition
+
+    def epoch_row_batches_sharded(self, epoch: int, n_shards: int) -> Iterator[np.ndarray]:
+        """Per-batch local row indices for the sharded dataset: segment ``d``
+        of each ``[batch_size]`` array holds ``batch_size / n_shards`` indices
+        into partition ``d``, drawn from it by the ordering strategy with the
+        seed ``seed * 1_000_003 + d``. A rank gathers its segment from its
+        partition."""
+        if self._device_kept_smiles is None:
+            raise RuntimeError("call device_dataset_sharded() first")
+        if self.batch_size % n_shards:
+            raise ValueError(f"batch {self.batch_size} not divisible by {n_shards} shards")
+        bs_local = self.batch_size // n_shards
+        Rl = len(self._device_kept_smiles) // n_shards
+        orders = [samplers.epoch_order(self.order_strategy,
+                                       self._device_kept_smiles[d * Rl : (d + 1) * Rl], bs_local,
+                                       self.seed * 1_000_003 + d, epoch)
+                  for d in range(n_shards)]
+        for i in range(Rl // bs_local):
+            yield np.concatenate([np.asarray(o[i * bs_local : (i + 1) * bs_local], np.int32)
+                                  for o in orders])
+
     def epoch_row_batches(self, epoch: int) -> Iterator[np.ndarray]:
         """Per-batch row indices into ``device_dataset()``, in the order
         ``epoch`` uses (rows index the featurizable records)."""
@@ -669,11 +812,23 @@ class Loader:
             raise RuntimeError("call device_dataset() first")
         order = samplers.epoch_order(self.order_strategy, self._device_kept_smiles,
                                      self.batch_size, self.seed, epoch)
+        order = self._host_slice(order)
         for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
             yield np.asarray(order[i : i + self.batch_size], np.int32)
         rem = len(order) % self.batch_size
         if rem and not self.drop_remainder:
             yield np.asarray(order[-rem:], np.int32)
+
+
+def _part(rows: list, part: Optional[tuple[int, int]]) -> list:
+    """Block ``i`` of ``n`` contiguous rows (all of them without ``part``)."""
+    if part is None:
+        return rows
+    i, n = part
+    if len(rows) % n:
+        raise ValueError(f"a batch of {len(rows)} rows does not split {n} ways")
+    k = len(rows) // n
+    return rows[i * k : (i + 1) * k]
 
 
 def _canonical(x: torch.Tensor) -> torch.Tensor:

@@ -151,9 +151,14 @@ def multinomial_decode(
     compute_dtype: Optional[str] = None,
     noise: Optional[torch.Tensor] = None,  # [max_len, B*fanout, vocab] gumbel draws
     device: DeviceLike = None,
+    global_lanes: int = 0,
+    lane_rows: Optional[torch.Tensor] = None,  # [B*fanout] rows of the global draw
 ) -> DecodeResult:
     """Temperature sampling of B*fanout sequences in one loop; the fan-out
-    lanes share each sample's cross K/V."""
+    lanes share each sample's cross K/V. With ``global_lanes``, these lanes
+    are part of a larger decode (a rank's under a mesh): each step draws the
+    Gumbel noise of all ``global_lanes`` lanes, as one process does, and lane
+    ``j`` takes row ``lane_rows[j]`` of it."""
     params, memory, cross = _prepare(params, cfg, memory, memory_kpm, compute_dtype, device)
     dev = memory.device
     batch = memory.shape[0] * fanout
@@ -169,7 +174,12 @@ def multinomial_decode(
 
     def select(logits, t):
         scaled = logits / temperature
-        g = noise[t] if noise is not None else gumbel(scaled.shape, generator, dev)
+        if noise is not None:
+            g = noise[t]
+        elif global_lanes:
+            g = gumbel((global_lanes, scaled.shape[1]), generator, dev)[lane_rows]
+        else:
+            g = gumbel(scaled.shape, generator, dev)
         nxt = (scaled + g).argmax(dim=-1)
         p = torch.softmax(scaled, dim=-1)
         return nxt, p.gather(1, nxt[:, None])[:, 0]

@@ -18,6 +18,14 @@ sampling rounds, and its hypotheses join each pool through the same
 canonicalize/dedup/MW gates, as in the JAX package (which dispatches the
 beam decode first and fetches it last; the beam decode is deterministic, so
 only the merge order matters).
+
+Under a mesh (``shard``) a rank samples for its block of the molecules, and
+its candidates equal one process's: round-shrink is off, as in the JAX
+package when the memory is sharded; each round the ranks share which
+molecules are still unsatisfied, so every lane takes the Gumbel rows that one
+process's packed round would give it (``multinomial_decode``'s
+``lane_rows``). A rank that has no unsatisfied molecule left skips the
+decode but still takes part in the exchange.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 
 from ..chem import api as chem
 from ..decode import samplers
+from ..parallel.collectives import dp_gather_rows
+from ..parallel.mesh import RankShard
 from ..utils import vocab
 from ..utils.config import DecodeConfig, ModelConfig
 from ..utils.device import DeviceLike, resolve_device
@@ -135,10 +145,15 @@ def generate_candidates_batch(
     on_round_accepted=None,
     device: DeviceLike = None,
     max_len: Optional[int] = None,  # overrides dcfg.max_len (length banding)
+    shard: Optional[RankShard] = None,
+    n_global: Optional[int] = None,
 ) -> list[CandidateSet]:
     """Fan-out sampling for a batch of molecules, one decode per round, then
     the beam hypotheses when ``dcfg.beam_candidates > 0``. Round ``k``
-    samples from a generator seeded by ``round_seed(seed, k)``."""
+    samples from a generator seeded by ``round_seed(seed, k)``. Under
+    ``shard`` the batch is this rank's block of the global batch, whose first
+    ``n_global`` molecules are real (the rest pad it to a multiple of the
+    ranks: they get no candidates)."""
     dev = resolve_device(device)
     memory, memory_kpm = memory.to(dev), memory_kpm.to(dev)
     B = memory.shape[0]
@@ -149,13 +164,26 @@ def generate_candidates_batch(
     compute_dtype = compute_dtype or dcfg.compute_dtype
     decode_len = max_len if max_len is not None else dcfg.max_len
     mws = target_mws if (target_mws is not None and dcfg.mw_filter) else [None] * B
-    shrink = dcfg.round_shrink and B > 1
+    sharded = shard is not None and shard.dp_size > 1
+    shrink = dcfg.round_shrink and B > 1 and not sharded
     widths = round_widths(B) if shrink else (B,)
     gen = torch.Generator(device=dev)
+    offset = shard.dp_index * B if sharded else 0
+    n_global = n_global if n_global is not None else B * (shard.dp_size if sharded else 1)
 
-    def decode(round_idx: int, idxs: list):
+    def noise_rows(everyone: list, lanes: list) -> dict:
+        """Each lane's rows of the global round's Gumbel draw: its molecule's
+        place among every rank's unsatisfied molecules (``everyone``, global
+        indices), as one process packs them."""
+        pos = {g: j for j, g in enumerate(everyone)}
+        rows = torch.tensor([pos[offset + b] * F + f for b in lanes for f in range(F)],
+                            dtype=torch.long, device=dev)
+        return dict(global_lanes=n_global * F, lane_rows=rows)
+
+    def decode(round_idx: int, idxs: list, everyone: Optional[list] = None):
         W = next(w for w in widths if len(idxs) <= w)
         lanes = idxs + [idxs[-1]] * (W - len(idxs))
+        shared = noise_rows(everyone, lanes) if everyone is not None else {}
         if lanes == list(range(B)):
             mem, kpm = memory, memory_kpm
         else:
@@ -166,15 +194,23 @@ def generate_candidates_batch(
         gen.manual_seed(round_seed(seed, round_idx))
         res = samplers.multinomial_decode(
             params, mcfg, mem, kpm, gen, lane_temp, decode_len, fanout=F,
-            compute_dtype=compute_dtype, device=dev,
+            compute_dtype=compute_dtype, device=dev, **shared,
         )
         return res, lanes
 
-    active = list(range(B)) if want > 0 else []  # no round when no sample is wanted
+    # no round when no sample is wanted; none for padding molecules
+    active = [b for b in range(B) if offset + b < n_global] if want > 0 else []
     for round_idx in range(dcfg.max_temp_rounds):
-        if not active:
+        everyone = None
+        if sharded:  # every rank joins each round's exchange until none is unsatisfied
+            everyone = dp_gather_rows([offset + b for b in active], shard)
+            if not everyone:
+                break
+            if not active:
+                continue
+        elif not active:
             break
-        res, lanes = decode(round_idx, active)
+        res, lanes = decode(round_idx, active, everyone)
         W = len(lanes)
         toks_u8, seqp = _fetch_pack(res.tokens, res.token_probs)
         tokens = toks_u8.reshape(W, F, -1)

@@ -14,6 +14,12 @@ rounds) -> assignment error, batched through kernel K2 (or per candidate on
 the host, ``spectral_scorer="host"``) -> rank by the average of the HSQC and
 COSY error ranks -> top-k accuracy. ``DecodeConfig.band_max_len`` cuts the
 decode length to the batch's targets.
+
+With ``mesh`` every rank calls ``evaluate_molecules`` with the same records on
+its own device (SPMD): the featurized records are padded to a multiple of the
+data extent by repeating the last one, each rank runs every stage on its
+contiguous block, and the results are gathered in order, trimmed of the pad
+and summarised on every rank, as one process would give them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from ..chem import api as chem
 from ..data import pipeline as dp
 from ..decode import samplers
 from ..models.mmt import MMTBatch, MultimodalTransformer
+from ..parallel.collectives import dp_gather_rows
+from ..parallel.mesh import RankShard, rank_shard
 from ..rank import clip as clip_mod
 from ..rank import matching
 from ..sim import factory as sim_factory
@@ -135,6 +143,7 @@ def evaluate_molecules(
     extra_candidates: Optional[Sequence[Sequence[str]]] = None,
     spectral_scorer: str = "device",
     device: DeviceLike = None,
+    mesh: Optional[Any] = None,
 ) -> tuple[list[MoleculeResult], EvalSummary]:
     """Evaluate molecules end to end on ``device`` (cuda unless asked).
 
@@ -146,7 +155,9 @@ def evaluate_molecules(
     candidate SMILES for ``records[i]``, merged into its sampled set before
     scoring and ranking. ``spectral_scorer``: "device" (every pair of a
     modality in one K2 call) or "host" (``matching.spectral_error`` per
-    candidate, ``hung_dist_nn``)."""
+    candidate, ``hung_dist_nn``). ``mesh``: every rank of it evaluates its
+    block of the records on ``device``, its own, and gets every result;
+    ``stage_seconds`` and ``mols_per_sec`` are the slowest rank's."""
     if spectral_scorer not in ("device", "host"):
         raise ValueError(f"spectral_scorer must be 'device' or 'host', got {spectral_scorer!r}")
     dev = resolve_device(device)
@@ -175,7 +186,25 @@ def evaluate_molecules(
     if not feats:
         return [], EvalSummary()
 
+    n_real = len(feats)
+    shard = None
+    if mesh is not None:
+        # pad by repeating the last record so the count splits evenly; each
+        # rank keeps its block (the decode length is banded on the whole batch)
+        shard = rank_shard(mesh)
+        pad = (-n_real) % shard.dp_size
+        feats = feats + [feats[-1]] * pad
+        kept_records = kept_records + [kept_records[-1]] * pad
+        if kept_extras is not None:
+            kept_extras = kept_extras + [()] * pad
     tb = dp.collate(feats)
+    decode_len = banded_decode_len(tb.trg_tokens, dcfg.max_len) if dcfg.band_max_len else dcfg.max_len
+    if shard is not None:
+        rows = shard.rows(len(feats) // shard.dp_size)
+        feats, kept_records = feats[rows], kept_records[rows]
+        kept_extras = kept_extras[rows] if kept_extras is not None else None
+        tb = dp.TrainBatch(MMTBatch(*(x[rows] for x in tb.inputs)), tb.trg_tokens[rows],
+                           tb.trg_fp[rows])
     t_start = time.perf_counter()
     clock[0] = t_start
     enc = model.encode(MMTBatch(*tb.inputs).to(dev))
@@ -186,7 +215,6 @@ def evaluate_molecules(
     mark("teacher_forced")
 
     params = model.state_dict()
-    decode_len = banded_decode_len(tb.trg_tokens, dcfg.max_len) if dcfg.band_max_len else dcfg.max_len
     greedy_res = samplers.greedy_decode(
         params, mcfg, enc.memory, enc.memory_key_padding_mask, 1.0, decode_len,
         compute_dtype=dcfg.compute_dtype, device=dev,
@@ -221,7 +249,8 @@ def evaluate_molecules(
         all_cands = generation.generate_candidates_batch(
             params, mcfg, enc.memory, enc.memory_key_padding_mask, seed, dcfg,
             target_mws=[float(f["mw"]) for f in feats],
-            on_round_accepted=on_accept, device=dev, max_len=decode_len,
+            on_round_accepted=on_accept, device=dev, max_len=decode_len, shard=shard,
+            n_global=n_real,
         )
     mark("sampling")
     if all_cands is not None and dcfg.greedy_in_pool:
@@ -250,7 +279,7 @@ def evaluate_molecules(
     clip_scores: dict[int, tuple[np.ndarray, np.ndarray]] = {}
     if all_cands is not None and clip_bundle is not None:
         clip_scores = _clip_scores(clip_bundle, all_cands, enc.fingerprint, clip_block,
-                                   dcfg.compute_dtype, dev)
+                                   dcfg.compute_dtype, dev, shard)
         mark("clip")
 
     # one factory pass over the union of candidates not simulated yet
@@ -361,9 +390,16 @@ def evaluate_molecules(
             res.candidates.sort(key=lambda c: -c.tanimoto)
         res.wall_time_s = time.perf_counter() - t0
         results.append(res)
-    summary = summarize(results)
+    if shard is None:
+        summary = summarize(results)
     mark("assemble")
     total = time.perf_counter() - t_start
+    if shard is not None:  # every rank's results in order, without the pad
+        results = dp_gather_rows(results, shard)[:n_real]
+        clocks = dp_gather_rows([(total, stages)], shard)
+        total = max(t for t, _ in clocks)
+        stages = {k: max(st.get(k, 0.0) for _, st in clocks) for k in stages}
+        summary = summarize(results)
     summary.mols_per_sec = len(results) / total if total > 0 else 0.0
     summary.stage_seconds = stages
     return results, summary
@@ -380,18 +416,19 @@ def clip_block_width(n_max: int, clip_block: int) -> int:
 
 
 def _clip_scores(clip_bundle: tuple, all_cands: list, fingerprints: torch.Tensor, clip_block: int,
-                 compute_dtype: Optional[str], dev: torch.device
-                 ) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+                 compute_dtype: Optional[str], dev: torch.device,
+                 shard: Optional[RankShard] = None) -> dict[int, tuple[np.ndarray, np.ndarray]]:
     """CLIP loss and dot similarity of every candidate, each molecule's block
     against its fingerprint, all molecules in one pass: {molecule index:
     (losses, dots)} over its real candidates. Short blocks repeat their last
     candidate; the padding enters the block's soft targets, as in the JAX
-    harness."""
+    harness. Under ``shard`` the block width is the global batch's."""
     clip_model, ccfg = clip_bundle
     with_cands = [i for i, cs in enumerate(all_cands) if cs.smiles]
+    n_max = max(dp_gather_rows([max((len(cs.smiles) for cs in all_cands), default=0)], shard))
     if not with_cands:
         return {}
-    width = clip_block_width(max(len(all_cands[i].smiles) for i in with_cands), clip_block)
+    width = clip_block_width(n_max, clip_block)
     blocks, n_reals = [], []
     for i in with_cands:
         smis = all_cands[i].smiles

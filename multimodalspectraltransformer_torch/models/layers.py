@@ -18,6 +18,15 @@ sublayer's output, the feed-forward's hidden activation). It runs when the
 module is in ``train()`` mode and the caller passes a dropout seed; each layer
 draws its masks from a generator made from its own seed, so a layer
 recomputed under ``checkpoint`` (``remat``) draws the same masks again.
+
+Under a mesh (``shard``, a ``parallel.RankShard`` set by
+``parallel.shard_model``) a layer holds a rank's rows of the batch and, with
+tensor parallelism, its heads and feed-forward columns: the attention runs
+its local heads and the feed-forward its local columns, each output
+projection's partial sums are reduced over the model group before its bias,
+and every dropout mask is drawn at the global shape and sliced, so a shard's
+mask is the one-process mask of its elements. Without a shard (or with one
+of size 1 on both axes) the code path is the one-process path.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.mesh import RankShard, draw
+
 
 def causal_mask(sz: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Additive causal mask: 0 on/below the diagonal, -inf above."""
@@ -37,15 +49,43 @@ def causal_mask(sz: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.zeros(sz, sz, dtype=dtype, device=device).masked_fill(~keep, float("-inf"))
 
 
-def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator],
+            shard: Optional[RankShard] = None, tp_dim: Optional[int] = None) -> torch.Tensor:
     """flax's Dropout: keep each element with probability 1 - p and divide the
     kept ones by 1 - p (in the dtype of ``x``); the identity when ``gen`` is
-    None or ``p`` is 0."""
+    None or ``p`` is 0. Under ``shard``, ``x`` is this rank's rows (and, with
+    ``tp_dim``, its slice of that dimension) of a global tensor, and the mask
+    is drawn at the global shape and sliced."""
     if gen is None or p <= 0.0:
         return x
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    keep = draw(torch.rand, x.shape, shard, tp_dim, generator=gen, device=x.device) < keep_prob
     return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), 0.0)
+
+
+def _tp_group(shard: Optional[RankShard]):
+    """The model group when ``shard`` splits parameters across it, else None."""
+    return shard.model_group if shard is not None and shard.tp_size > 1 else None
+
+
+def _row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear`` on ``x``; with a model ``group``, ``x`` holds this rank's
+    input columns, and the partial products are summed over the group before
+    the bias is added."""
+    if group is None:
+        return linear(x)
+    out = reduce_from_model(F.linear(x, linear.weight.to(x.dtype)), group)
+    return out + linear.bias.to(out.dtype)
+
+
+def _feed_forward(layer: nn.Module, x: torch.Tensor, act, gen) -> torch.Tensor:
+    """linear2(dropout(act(linear1(x)))), column- then row-parallel over the
+    model group under tensor parallelism."""
+    group = _tp_group(layer.shard)
+    if group is not None:
+        x = copy_to_model(x, group)
+    y = dropout(act(layer.linear1(x)), layer.p, gen, layer.shard, tp_dim=-1)
+    return _row_parallel(layer.linear2, y, group)
 
 
 def make_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
@@ -64,17 +104,22 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm with its statistics and affine in float32 and the result
-    in the input's dtype (flax's LayerNorm with ``dtype=``)."""
+    """nn.LayerNorm with its statistics and affine in float32 (float64 for a
+    float64 input) and the result in the input's dtype (flax's LayerNorm with
+    ``dtype=``, which computes in at least float32)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(acc), self.normalized_shape, self.weight.to(acc),
+                            self.bias.to(acc), self.eps).to(x.dtype)
 
 
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention math, batch-first, with dropout on the
-    attention weights."""
+    attention weights. Under tensor parallelism ``in_proj`` holds the q, k
+    and v rows of this rank's heads and ``out_proj`` their input columns."""
+
+    shard: Optional[RankShard] = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -99,9 +144,16 @@ class MultiheadAttention(nn.Module):
     ):
         """-> the attention output [B, Sq, D]; with ``need_weights``, (output,
         the softmax weights [B, H, Sq, Sk] before dropout)."""
-        d, h = self.embed_dim, self.num_heads
-        dh = d // h
+        dh = self.embed_dim // self.num_heads
         w, b = self.in_proj_weight.to(query.dtype), self.in_proj_bias.to(query.dtype)
+        d = w.shape[0] // 3  # this rank's heads: all of them without tensor parallelism
+        h = d // dh
+        group = _tp_group(self.shard)
+        if group is not None:
+            same, kv = query is key and key is value, key is value
+            query = copy_to_model(query, group)
+            key = query if same else copy_to_model(key, group)
+            value = key if kv else copy_to_model(value, group)
         if query is key and key is value:
             q, k, v = F.linear(query, w, b).chunk(3, dim=-1)
         else:
@@ -120,8 +172,8 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
         weights = torch.softmax(scores, dim=-1)
-        attn = dropout(weights, self.dropout, gen)
-        out = self.out_proj((attn @ v).transpose(1, 2).reshape(B, Sq, d))
+        attn = dropout(weights, self.dropout, gen, self.shard, tp_dim=1)
+        out = _row_parallel(self.out_proj, (attn @ v).transpose(1, 2).reshape(B, Sq, d), group)
         return (out, weights) if need_weights else out
 
 
@@ -139,6 +191,8 @@ class TransformerEncoderLayer(nn.Module):
     feed-forward's: "relu" (torch's default, the MMT) or "gelu" (the exact
     erf form of the Roberta-style CLIP text tower)."""
 
+    shard: Optional[RankShard] = None
+
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 2048, eps: float = 1e-5,
                  activation: str = "relu", dropout: float = 0.0):
         super().__init__()
@@ -153,9 +207,9 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x, key_padding_mask=None, attn_mask=None, seed: Optional[int] = None):
         gen = make_generator(seed, x.device) if self.training else None
         sa = self.self_attn(x, x, x, attn_mask, key_padding_mask, gen)
-        x = self.norm1(x + dropout(sa, self.p, gen))
-        y = dropout(self.act(self.linear1(x)), self.p, gen)
-        return self.norm2(x + dropout(self.linear2(y), self.p, gen))
+        x = self.norm1(x + dropout(sa, self.p, gen, self.shard))
+        return self.norm2(x + dropout(_feed_forward(self, x, self.act, gen), self.p, gen,
+                                      self.shard))
 
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -217,6 +271,8 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """torch.nn.TransformerDecoderLayer, post-LN, ReLU feed-forward."""
 
+    shard: Optional[RankShard] = None
+
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 2048, eps: float = 1e-5,
                  dropout: float = 0.0):
         super().__init__()
@@ -233,12 +289,12 @@ class TransformerDecoderLayer(nn.Module):
                 seed: Optional[int] = None):
         gen = make_generator(seed, x.device) if self.training else None
         sa = self.self_attn(x, x, x, attn_mask=tgt_mask, gen=gen)
-        x = self.norm1(x + dropout(sa, self.p, gen))
+        x = self.norm1(x + dropout(sa, self.p, gen, self.shard))
         ca = self.multihead_attn(x, memory, memory, key_padding_mask=memory_key_padding_mask,
                                  gen=gen)
-        x = self.norm2(x + dropout(ca, self.p, gen))
-        y = dropout(F.relu(self.linear1(x)), self.p, gen)
-        return self.norm3(x + dropout(self.linear2(y), self.p, gen))
+        x = self.norm2(x + dropout(ca, self.p, gen, self.shard))
+        return self.norm3(x + dropout(_feed_forward(self, x, F.relu, gen), self.p, gen,
+                                      self.shard))
 
 
 class TransformerDecoder(nn.Module):

@@ -115,7 +115,11 @@ class MultimodalTransformer(nn.Module):
     stay float32. Dropout (``cfg.dropout``) runs in ``train()`` mode when a
     ``generator`` is passed: one seed per layer (and one for the target
     embedding) is drawn from it, so every modality encoder gets its own masks.
+    ``shard`` (set by ``parallel.shard_model``) is this rank's place on a
+    mesh; None runs on one device.
     """
+
+    shard = None
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -241,7 +245,7 @@ class MultimodalTransformer(nn.Module):
         dev = trg_tokens.device
         pos = torch.arange(T, device=dev)
         x = _embed(self.embed_trg, trg_tokens, dt) + _embed(self.pe_trg, pos, dt)[None]
-        x = dropout(x, self.cfg.dropout, make_generator(seeds and seeds[-1], dev))
+        x = dropout(x, self.cfg.dropout, make_generator(seeds and seeds[-1], dev), self.shard)
         mask = causal_mask(T, dtype=dt, device=dev)
         dec = self.decoder(x, memory, mask, memory_key_padding_mask, seeds=seeds and seeds[:-1])
         logits = self.fc_out(dec)

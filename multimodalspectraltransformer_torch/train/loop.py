@@ -10,8 +10,20 @@ backup; every ``gen_metrics_every`` steps, greedy-decodes the step's batch
 (kernel K1 on the card) and logs ``generation_metrics``: validity,
 tanimoto, exact match and the gradient-free auxiliary loss terms (MW,
 spectral feedback, tanimoto, validity). ``MetricsLogger`` writes the JSONL
-metrics, ``anneal_weights`` gives the annealed loss weights. Data
-parallelism (``mesh``) is not ported yet (ROADMAP section 1).
+metrics, ``anneal_weights`` gives the annealed loss weights.
+
+With a ``mesh`` (``parallel.make_mesh``), every rank calls ``run_training``
+with the same arguments on its own device (SPMD). The parameters start as rank
+0's and, where the mesh has a ``model`` axis of size > 1, each rank keeps its
+Megatron shard of them (``parallel.shard_model``); each rank trains on its
+rows of every global batch (its partition of the sharded device dataset, or
+its rows of the host loader's batches), the gradients are averaged over the
+data-parallel ranks, and the losses, the plateau and the generation metrics
+are the global batch's on every rank. Rank 0 alone writes the metrics log
+and the checkpoints, which hold the whole state. Under tensor parallelism a
+crash writes no parameter backup (the parameters are split over the ranks,
+and gathering them after an error could wait forever on a rank that is gone);
+rank 0 prints that it wrote none. The checkpoints are written as usual.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from ..chem import api as chem
 from ..data import pipeline as dp
 from ..decode import samplers
 from ..models import mmt
+from ..parallel import collectives
+from ..parallel import mesh as pmesh
 from ..rank import matching
 from ..sim import factory as sim_factory
 from ..utils import vocab
@@ -141,10 +155,8 @@ def run_training(
 ) -> TrainResult:
     """Train the MMT on one device (cuda unless asked otherwise), from
     ``init_params`` (a state dict, e.g. ``import_params_msgpack``'s) or the
-    JAX package's initializers drawn from ``seed``."""
-    if mesh is not None:
-        raise NotImplementedError("data parallelism over a mesh is not ported yet "
-                                  "(ROADMAP section 1)")
+    JAX package's initializers drawn from ``seed``; with ``mesh``, on every
+    rank of it (``device`` is the rank's own)."""
     dev = resolve_device(device)
     if init_params is not None:
         model = mmt.MultimodalTransformer(cfg.model)
@@ -152,19 +164,33 @@ def run_training(
         model = model.to(dev)
     else:
         model = mmt.init_model(cfg.model, seed, dev)
+    shard = None
+    n_shards = 1
+    writer = True
+    if mesh is not None:
+        shard = pmesh.rank_shard(mesh)
+        n_shards = shard.dp_size
+        writer = torch.distributed.get_rank() == 0
+        pmesh.shard_model(pmesh.broadcast_module(model), shard)
+        for ldr in (train_loader, val_loader):
+            if ldr is not None and ldr.batch_size % n_shards:
+                raise ValueError(f"run_training: batch {ldr.batch_size} not divisible by "
+                                 f"{n_shards} data shards")
 
     dd = None
     if device_data or device_data is None:
-        dd = train_loader.device_dataset(dev)
+        dd = (train_loader.device_dataset_sharded(mesh, dev) if shard is not None
+              else train_loader.device_dataset(dev))
 
     state = create_state(cfg.train, model)
     manager = None
     if checkpoint_dir:
         manager = ckpt_mod.CheckpointManager(checkpoint_dir, keep=cfg.train.keep_checkpoints,
-                                             save_interval_steps=cfg.train.save_interval_steps)
+                                             save_interval_steps=cfg.train.save_interval_steps,
+                                             writer=writer)
         manager.restore(state)
 
-    logger = MetricsLogger(metrics_path)
+    logger = MetricsLogger(metrics_path if writer else None)
     train_loss = float("nan")
     val_loss = float("nan")
     step_count = state.step
@@ -173,30 +199,39 @@ def run_training(
     start_epoch = step_count // max(1, len(train_loader)) if step_count else 0
     start_epoch = min(start_epoch, max(0, cfg.train.num_epochs - 1))
     put_batch = lambda b: dp.to_device(b, dev)
+    # a rank's rows of each host batch (the loaders' own epochs without a mesh)
+    epoch_of = ((lambda ldr, e: ldr.epoch(e)) if shard is None
+                else (lambda ldr, e: ldr.epoch(e, (shard.dp_index, shard.dp_size))))
     t = cfg.train
 
     try:
         for epoch in range(start_epoch, cfg.train.num_epochs):
             if done:
                 break
-            if dd is not None:
+            if dd is not None and shard is not None:
+                rows = shard.rows(train_loader.batch_size // n_shards)
+                batches = (dp.gather_rows(dd, idx[rows])
+                           for idx in train_loader.epoch_row_batches_sharded(epoch, n_shards))
+            elif dd is not None:
                 batches = (dp.gather_rows(dd, idx) for idx in train_loader.epoch_row_batches(epoch))
             else:
-                batches = _prefetch(train_loader.epoch(epoch), put_batch)
+                batches = _prefetch(epoch_of(train_loader, epoch), put_batch)
             last_m = None
             for b in batches:
                 if t.warp_1h_ppm > 0 or t.warp_13c_ppm > 0:
                     b = warp_spectra_device(b, fold_generator(seed, _WARP_TAG, step_count,
                                                               device=dev),
-                                            t.warp_1h_ppm, t.warp_13c_ppm, t.jitter_gate_p)
+                                            t.warp_1h_ppm, t.warp_13c_ppm, t.jitter_gate_p,
+                                            shard=shard)
                 if t.jitter_1h_ppm > 0 or t.jitter_13c_ppm > 0:
                     b = jitter_spectra_device(b, fold_generator(seed, _JITTER_TAG, step_count,
                                                                 device=dev),
-                                              t.jitter_1h_ppm, t.jitter_13c_ppm, t.jitter_gate_p)
+                                              t.jitter_1h_ppm, t.jitter_13c_ppm, t.jitter_gate_p,
+                                              shard=shard)
                 if t.blank_percentage > 0:
                     b = blank_modalities_device(b, t.blank_percentage,
                                                 fold_generator(seed, _BLANK_TAG, step_count,
-                                                               device=dev))
+                                                               device=dev), shard=shard)
                 state, m = train_step(cfg, state, b, seed)
                 last_m = m
                 step_count += 1
@@ -222,19 +257,23 @@ def run_training(
 
             if val_loader is not None:
                 losses = [float(eval_step(cfg, model, put_batch(batch)).loss)
-                          for batch in val_loader.epoch(epoch)]
+                          for batch in epoch_of(val_loader, epoch)]
                 if losses:
                     val_loss = float(np.mean(losses))
                     logger.log({"step": step_count, "epoch": epoch, "val_loss": val_loss})
     except Exception:
-        # last-resort backup of the parameters on any training exception
-        if checkpoint_dir:
+        # last-resort backup of the parameters on any training exception (rank
+        # 0's, which are whole unless tensor parallelism split them)
+        if checkpoint_dir and writer and (shard is None or shard.tp_size == 1):
             backup = os.path.join(checkpoint_dir, "last_backup_params.msgpack")
             try:
                 ckpt_mod.export_params_msgpack(model, backup)
                 print(f"run_training: crash backup saved to {backup}")
             except Exception as be:  # noqa: BLE001 - the original error is re-raised
                 print(f"run_training: crash backup FAILED ({be!r}); no {backup}")
+        elif checkpoint_dir and writer:
+            print("run_training: no crash backup under tensor parallelism (the parameters "
+                  "are split over the model axis); the last checkpoint stands")
         raise
     finally:
         logger.close()
@@ -261,14 +300,18 @@ def anneal_weights(step: int, cfg: MMTConfig) -> tuple[float, float]:
 def greedy_generations(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: dp.TrainBatch
                        ) -> tuple[list[str], list[str]]:
     """The batch's greedy decodes (``spectrum_points`` steps, the model's
-    dtype; kernel K1 on the card) and its target SMILES."""
+    dtype; kernel K1 on the card) and its target SMILES. Under a mesh each
+    rank decodes its rows with the whole parameters, and every rank gets the
+    global batch's lists."""
     enc = model.encode(batch.inputs)
-    res = samplers.greedy_decode(model.state_dict(), cfg.model, enc.memory,
-                                 enc.memory_key_padding_mask, 1.0, cfg.model.spectrum_points,
-                                 device=enc.memory.device)
+    shard = model.shard
+    params = model.state_dict() if shard is None else pmesh.gather_state_dict(model)
+    res = samplers.greedy_decode(params, cfg.model, enc.memory, enc.memory_key_padding_mask, 1.0,
+                                 cfg.model.spectrum_points, device=enc.memory.device)
     gen = vocab.batch_ids_to_smiles(res.tokens.cpu().numpy())
     tgt = [vocab.ids_to_smiles(t[1:]) for t in np.asarray(torch.as_tensor(batch.trg_tokens).cpu())]
-    return gen, tgt
+    pairs = collectives.dp_gather_rows(list(zip(gen, tgt)), shard)
+    return [g for g, _ in pairs], [s for _, s in pairs]
 
 
 def generation_metrics(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: dp.TrainBatch,
@@ -278,7 +321,8 @@ def generation_metrics(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: 
     tanimoto over the valid generations, exact match; the min-max-normalized
     MW MSE over valid generations; the spectral feedback error (with
     ``sgnn_feedback``); the annealed weights and ``aux_loss_total``, the
-    weighted sum the reference adds to its loss as a plain number."""
+    weighted sum the reference adds to its loss as a plain number. Under a
+    mesh, of the global batch, equal on every rank."""
     gen, tgt = greedy_generations(model, cfg, batch)
     valid_mask = chem.batch_is_valid(gen)
     validity = float(np.mean(valid_mask)) if len(gen) else 0.0
@@ -299,6 +343,12 @@ def generation_metrics(model: mmt.MultimodalTransformer, cfg: MMTConfig, batch: 
 
     sgnn_error = float("nan")
     if t.sgnn_feedback:
+        shard = model.shard
+        if shard is not None and shard.dp_size > 1:  # the global batch's HSQC inputs
+            src = torch.as_tensor(batch.inputs.src_hsqc)
+            rows = collectives.dp_gather_rows(list(src.cpu().numpy()), shard)
+            batch = batch._replace(inputs=batch.inputs._replace(
+                src_hsqc=torch.as_tensor(np.stack(rows), device=src.device)))
         sgnn_error = spectral_feedback_error(gen, batch, valid_mask)
 
     w_mw, w_sgnn = anneal_weights(step, cfg)

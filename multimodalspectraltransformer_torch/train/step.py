@@ -14,6 +14,12 @@ run would. Each random function also takes its draws injected (``noise``),
 which the tests use to feed the JAX package's own draws. JAX's
 ``fast_dropout_rng`` (the TPU's hardware RNG) has no counterpart here: the
 option is accepted and changes nothing.
+
+Under a mesh (the model's ``shard``, ``parallel.shard_model``) a rank holds its
+rows of the global batch: every random draw here is made at the global batch
+shape and sliced (``parallel.mesh.draw``), the gradients are averaged over the
+data-parallel ranks before AdamW, ratios reduce their sums and counts, and the
+global gradient norm counts each tensor-parallel shard once.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 
 from ..data.pipeline import TrainBatch
 from ..models.mmt import MultimodalTransformer, split_generator
+from ..parallel.collectives import all_reduce_, dp_mean, dp_sum, grad_all_reduce_
+from ..parallel.mesh import RankShard, draw, is_tp_sharded
 from ..utils import vocab
 from ..utils.config import MMTConfig
 from . import loss as loss_mod
@@ -65,11 +73,13 @@ def _live(mask: torch.Tensor, dtype) -> torch.Tensor:
 
 def blank_modalities_device(batch: TrainBatch, p: float,
                             generator: Optional[torch.Generator] = None,
-                            uniform: Optional[torch.Tensor] = None) -> TrainBatch:
+                            uniform: Optional[torch.Tensor] = None,
+                            shard: Optional[RankShard] = None) -> TrainBatch:
     """Per-sample modality blanking: each present modality is blanked with
     probability ``p`` (its spectrum zeroed, its mask all padding); where
     everything got blanked, 1H and 13C are restored. ``uniform`` [B, 5]
-    replaces the draws from ``generator``."""
+    replaces the draws from ``generator``; under ``shard`` the batch is this
+    rank's rows, and the draws are the global batch's rows."""
     inp = batch.inputs
     B = inp.mw.shape[0]
     dev = inp.mw.device
@@ -79,7 +89,7 @@ def blank_modalities_device(batch: TrainBatch, p: float,
         (inp.src_ir != 0).any(dim=1),
     ], dim=1)
     if uniform is None:
-        uniform = torch.rand(B, 5, generator=generator, device=dev)
+        uniform = draw(torch.rand, (B, 5), shard, generator=generator, device=dev)
     keep = present & ~(uniform.to(dev) < p)
     none_kept = ~keep.any(dim=1)
     keep[:, :2] = torch.where(none_kept[:, None], present[:, :2], keep[:, :2])
@@ -100,19 +110,20 @@ def blank_modalities_device(batch: TrainBatch, p: float,
 
 def jitter_spectra_device(batch: TrainBatch, generator: Optional[torch.Generator] = None,
                           sigma_h: float = 0.2, sigma_c: float = 3.0, gate_p: float = 0.5,
-                          noise: Optional[Sequence[torch.Tensor]] = None) -> TrainBatch:
+                          noise: Optional[Sequence[torch.Tensor]] = None,
+                          shard: Optional[RankShard] = None) -> TrainBatch:
     """Per-peak Gaussian jitter of the NMR coordinates (sigmas in ppm), each
     sample jittered with probability ``gate_p``; 1H intensities and padded
     slots untouched. ``noise`` = (gate uniform [B], 1H [B, P], 13C [B, P],
     HSQC H [B, P], HSQC C [B, P], COSY [B, P, 2]) standard draws replaces the
-    draws from ``generator``."""
+    draws from ``generator`` (the global batch's rows under ``shard``)."""
     inp = batch.inputs
     B, P = inp.src_1h.shape[:2]
     dev, dt = inp.mw.device, inp.src_1h.dtype
     if noise is None:
-        g = lambda *s: torch.randn(*s, generator=generator, device=dev)
-        noise = (torch.rand(B, generator=generator, device=dev), g(B, P), g(B, P), g(B, P),
-                 g(B, P), g(B, P, 2))
+        g = lambda *s: draw(torch.randn, s, shard, generator=generator, device=dev)
+        noise = (draw(torch.rand, (B,), shard, generator=generator, device=dev), g(B, P),
+                 g(B, P), g(B, P), g(B, P), g(B, P, 2))
     u, n1h, n13c, nh, nc, ncosy = (torch.as_tensor(x, device=dev) for x in noise)
     gate = (u < gate_p).to(dt)
     sh, sc = sigma_h / 10.0, sigma_c / 200.0
@@ -140,21 +151,23 @@ def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor
 def warp_spectra_device(batch: TrainBatch, generator: Optional[torch.Generator] = None,
                         sigma_h: float = 0.3, sigma_c: float = 4.0, gate_p: float = 0.5,
                         knots_h: int = 5, knots_c: int = 6,
-                        noise: Optional[Sequence[torch.Tensor]] = None) -> TrainBatch:
+                        noise: Optional[Sequence[torch.Tensor]] = None,
+                        shard: Optional[RankShard] = None) -> TrainBatch:
     """Per-sample smooth random warp of the ppm axes, the same on every
     modality: offsets drawn at ``knots_c`` (``knots_h``) knots spanning the
     13C (1H) axis are interpolated linearly and added to every carbon (proton)
     coordinate: 13C peaks and HSQC C (1H, HSQC H and both COSY coordinates).
     Each sample is warped with probability ``gate_p``; padded slots stay
     zero. ``noise`` = (gate uniform [B], standard normals [B, knots_c] and
-    [B, knots_h]) replaces the draws from ``generator``."""
+    [B, knots_h]) replaces the draws from ``generator`` (the global batch's
+    rows under ``shard``)."""
     inp = batch.inputs
     B = inp.mw.shape[0]
     dev, dt = inp.mw.device, inp.src_1h.dtype
     if noise is None:
-        noise = (torch.rand(B, generator=generator, device=dev),
-                 torch.randn(B, knots_c, generator=generator, device=dev),
-                 torch.randn(B, knots_h, generator=generator, device=dev))
+        kw = dict(generator=generator, device=dev)
+        noise = (draw(torch.rand, (B,), shard, **kw), draw(torch.randn, (B, knots_c), shard, **kw),
+                 draw(torch.randn, (B, knots_h), shard, **kw))
     u, zc, zh = (torch.as_tensor(x, device=dev) for x in noise)
     gate = (u < gate_p).to(dt)
     kc = torch.linspace(-0.05, 1.15, knots_c, device=dev)
@@ -180,10 +193,16 @@ def compute_dtype(cfg: MMTConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.train.mixed_precision else getattr(torch, cfg.model.dtype)
 
 
-def _token_accuracy(logits: torch.Tensor, trg_tokens: torch.Tensor) -> torch.Tensor:
+def _token_accuracy(logits: torch.Tensor, trg_tokens: torch.Tensor,
+                    shard: Optional[RankShard] = None) -> torch.Tensor:
+    """Teacher-forced next-token accuracy over the non-pad targets; under
+    ``shard``, hits and counts summed over the data-parallel ranks first."""
     targets = trg_tokens[:, 1:].long()
     live = targets != vocab.PAD_ID
     hits = ((logits.argmax(dim=-1) == targets) & live).sum()
+    if shard is not None and shard.dp_size > 1:
+        hits, n = dp_sum(torch.stack([hits, live.sum()]), shard)
+        return hits / n.clamp_min(1)
     return hits / live.sum().clamp_min(1)
 
 
@@ -199,6 +218,7 @@ def loss_fn(model: MultimodalTransformer, cfg: MMTConfig, batch: TrainBatch,
     [B, T, V], uniform [B, T]) replaces the sampling draws."""
     dt = compute_dtype(cfg)
     t = cfg.train
+    shard = model.shard
     if t.ss_prob > 0.0:
         g_enc, g_samp, g_mix, g_dec = split_generator(generator, 4)
         enc = model(batch.inputs, generator=g_enc, dtype=dt)
@@ -208,9 +228,9 @@ def loss_fn(model: MultimodalTransformer, cfg: MMTConfig, batch: TrainBatch,
                                          None, dt).float()
         if noise is None:
             dev = logits1.device
-            u = torch.rand(logits1.shape, generator=g_samp).to(dev)
+            u = draw(torch.rand, logits1.shape, shard, generator=g_samp).to(dev)
             gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-            noise = (gumbel, torch.rand(dec_in.shape, generator=g_mix).to(dev))
+            noise = (gumbel, draw(torch.rand, dec_in.shape, shard, generator=g_mix).to(dev))
         gumbel, uniform = (torch.as_tensor(x, device=dec_in.device) for x in noise)
         sampled = (logits1 + gumbel).argmax(dim=-1)
         pred_for_pos = torch.cat([dec_in[:, :1], sampled[:, :-1]], dim=1)
@@ -224,35 +244,55 @@ def loss_fn(model: MultimodalTransformer, cfg: MMTConfig, batch: TrainBatch,
         logits, fp_logits, _, _ = model(batch.inputs, batch.trg_tokens[:, :-1], generator, dt)
     logits = logits.float()
     out = loss_mod.total_loss(logits, batch.trg_tokens, fp_logits.float(), batch.trg_fp,
-                              weight_smi=t.weight_smi, weight_fp=t.weight_fp)
-    return out.total, (out, _token_accuracy(logits.detach(), batch.trg_tokens))
+                              weight_smi=t.weight_smi, weight_fp=t.weight_fp, shard=shard)
+    return out.total, (out, _token_accuracy(logits.detach(), batch.trg_tokens, shard))
+
+
+def _global_norm(model: MultimodalTransformer, shard: Optional[RankShard]) -> torch.Tensor:
+    """The norm of every gradient together; under tensor parallelism the
+    squares of the split leaves are summed over the model group and the
+    replicated leaves counted once."""
+    named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    if shard is None or shard.tp_size == 1:
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                     for _, g in named]))
+    sq = lambda split: torch.stack([g.float().pow(2).sum() for n, g in named
+                                    if is_tp_sharded(n) == split]).sum()
+    return torch.sqrt(all_reduce_(sq(True), shard.model_group) + sq(False))
 
 
 def train_step(cfg: MMTConfig, state: TrainState, batch: TrainBatch, seed: int = 0,
                noise: Optional[Sequence[torch.Tensor]] = None) -> tuple[TrainState, StepMetrics]:
     """One step: the loss with dropout from ``step_generator(seed,
-    state.step)``, its gradients, their global norm, one AdamW application."""
+    state.step)``, its gradients (averaged over the data-parallel ranks under
+    a mesh), their global norm, one AdamW application. The metrics are the
+    global batch's."""
     model = state.model
+    shard = model.shard
     model.train()
     model.zero_grad(set_to_none=True)
     total, (out, acc) = loss_fn(model, cfg, batch, step_generator(seed, state.step), state.step,
                                 noise)
     total.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if shard is not None:
+        grad_all_reduce_([p.grad for p in model.parameters() if p.grad is not None], shard)
+    gnorm = _global_norm(model, shard)
     apply_grads(cfg.train, state)
-    return state, StepMetrics(total.detach(), out.smi_loss.detach(), out.fp_loss.detach(), acc,
-                              gnorm)
+    loss, smi, fp = dp_mean([total.detach(), out.smi_loss.detach(), out.fp_loss.detach()], shard)
+    return state, StepMetrics(loss, smi, fp, acc, gnorm)
 
 
 @torch.no_grad()
 def eval_step(cfg: MMTConfig, model: MultimodalTransformer, batch: TrainBatch) -> StepMetrics:
-    """The loss without dropout or gradients, in the model's dtype."""
+    """The loss without dropout or gradients, in the model's dtype (the
+    global batch's under a mesh)."""
     model.eval()
+    shard = model.shard
     logits, fp_logits, _, _ = model(batch.inputs, batch.trg_tokens[:, :-1])
     logits = logits.float()
     out = loss_mod.total_loss(logits, batch.trg_tokens, fp_logits.float(), batch.trg_fp,
-                              weight_smi=cfg.train.weight_smi, weight_fp=cfg.train.weight_fp)
-    return StepMetrics(out.total, out.smi_loss, out.fp_loss,
-                       _token_accuracy(logits, batch.trg_tokens),
+                              weight_smi=cfg.train.weight_smi, weight_fp=cfg.train.weight_fp,
+                              shard=shard)
+    loss, smi, fp = dp_mean([out.total, out.smi_loss, out.fp_loss], shard)
+    return StepMetrics(loss, smi, fp, _token_accuracy(logits, batch.trg_tokens, shard),
                        torch.zeros((), device=logits.device))

@@ -6,7 +6,9 @@ only the port's packages:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
-(``--noconftest``: the suite's conftest sets up JAX.)
+(``--noconftest``: the suite's conftest sets up JAX.) The parallel tests at the
+end start their ranks with ``parallel/launch.py``; the ranks run
+``tests/torch_parallel_ranks.py``, which imports no JAX either.
 """
 
 from __future__ import annotations
@@ -404,3 +406,88 @@ def test_vectordb_topk_on_gpu_matches_cpu_with_ties(cuda_device, metric):
     s_gpu, i_gpu, _ = vectordb.query(db, q, k=50, metric=metric, device=cuda_device)
     np.testing.assert_array_equal(i_gpu, i_cpu)
     np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-6, atol=1e-6 * np.abs(s_cpu).max())
+
+
+# ---------------------------------------------------------------------------
+# data parallelism on the card (parallel/): ranks started by parallel/launch.py
+# ---------------------------------------------------------------------------
+
+def _parallel_inputs(dropout: float):
+    """A small model's parameters, an 8-row batch and the config (the CPU
+    parallel tests' width), and the one-process step on the card."""
+    import torch_parallel_ranks as ranks
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import mmt
+    from multimodalspectraltransformer_torch.train import state as st
+    from multimodalspectraltransformer_torch.train import step
+    from multimodalspectraltransformer_torch.utils.config import (MMTConfig, ModelConfig,
+                                                                  TrainConfig)
+
+    cfg = MMTConfig(model=ModelConfig(num_encoder_layers=1, num_decoder_layers=1, ffn_dim=64,
+                                      dropout=dropout), train=TrainConfig(learning_rate=1e-3))
+    sd = {k: v.numpy() for k, v in mmt.init_model(cfg.model, 0, "cpu").state_dict().items()}
+    batch = dp.collate([dp.featurize(r, cfg.model) for r in dp.synthetic_dataset(8, seed=2)])
+    model = ranks._model(cfg.model, sd).cuda()
+    state, m = step.train_step(cfg, st.create_state(cfg.train, model),
+                               dp.to_device(ranks._rows(batch, slice(None)), "cuda"), 3)
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters() if p.grad is not None}
+    return cfg, sd, batch, float(m.loss), grads
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_step_equals_no_mesh(cuda_device):
+    """A world of one rank over NCCL: the step on a mesh is the step without
+    one, bit for bit (the all-reduce over one rank is the identity)."""
+    from multimodalspectraltransformer_torch.parallel.launch import launch
+
+    cfg, sd, batch, loss, grads = _parallel_inputs(dropout=0.1)
+    got = launch("torch_parallel_ranks:step", 1, args=((None, 1, 1), cfg, sd, batch, 3),
+                 kwargs=dict(device="cuda"), device="cuda", backend="nccl")[0]
+    assert got["loss"] == loss
+    for k, g in grads.items():
+        np.testing.assert_array_equal(got["grads"][k], g, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_two_rank_gloo_step_on_the_card_matches_one_process(cuda_device):
+    """Two ranks sharing the card over gloo as (data 2), dropout on: loss
+    within 2e-5 relative, gradients within 5e-5 of each leaf's largest
+    magnitude."""
+    from multimodalspectraltransformer_torch.parallel.launch import launch
+
+    cfg, sd, batch, loss, grads = _parallel_inputs(dropout=0.1)
+    out = launch("torch_parallel_ranks:step", 2, args=((None, 2, 1), cfg, sd, batch, 3),
+                 kwargs=dict(device="cuda"), device="cuda", backend="gloo")
+    assert abs(out[0]["loss"] - loss) <= 2e-5 * abs(loss)
+    assert out[1]["loss"] == out[0]["loss"]
+    for k, g in grads.items():
+        scale = max(float(np.abs(g).max()), 1e-3)
+        np.testing.assert_allclose(out[0]["grads"][k] / scale, g / scale, atol=5e-5, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_two_ranks_build_the_kernels_at_once(cuda_device, tmp_path):
+    """Two processes building the kernels from an empty build directory at the
+    same moment each compile to a temporary of their own and move it into
+    place: both load the library, and no temporary is left."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from multimodalspectraltransformer_torch.ops import _build
+
+    pkg = os.path.dirname(os.path.dirname(_build.__file__))
+    shutil.copytree(pkg, tmp_path / os.path.basename(pkg),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = ("from multimodalspectraltransformer_torch.ops import _build; "
+            "print(_build.lib()._name)")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [err for _, err in outs]
+    lib = str(tmp_path / os.path.basename(pkg) / "build" / "libmmtkernels.so")
+    assert [out.strip() for out, _ in outs] == [lib, lib]
+    assert not [f for f in os.listdir(os.path.dirname(lib)) if "tmp" in f]

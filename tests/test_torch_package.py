@@ -17,6 +17,7 @@ from multimodalspectraltransformer_torch.decode import samplers
 from multimodalspectraltransformer_torch.eval import harness, vectordb
 from multimodalspectraltransformer_torch.models import mmt
 from multimodalspectraltransformer_torch.ops import auction, beam_attention, decode_attention
+from multimodalspectraltransformer_torch.parallel import dryrun, launch
 from multimodalspectraltransformer_torch.rank import clip, matching
 from multimodalspectraltransformer_torch.sim import distill, factory
 from multimodalspectraltransformer_torch.train import contrastive, improvement_cycle, loop, molgen
@@ -46,7 +47,8 @@ PORT_MODULES = [
               "train.step", "train.loop", "train.checkpoint", "train.molgen",
               "train.improvement_cycle", "serve", "serve.app", "serve.jobs", "serve.plots",
               "serve.svg", "cli", "eval.vectordb", "eval.umap", "eval.clustering", "sim.dft",
-              "utils.profiling", "utils.roofline")
+              "utils.profiling", "utils.roofline", "parallel", "parallel.mesh",
+              "parallel.collectives", "parallel.launch", "parallel.dryrun")
 ]
 PORT_SCRIPTS = [os.path.join(REPO, "scripts", n) for n in (
     "torch_accuracy_report.py", "torch_train_sim_models.py", "torch_heldout_precision.py")]
@@ -147,6 +149,9 @@ ENTRY_POINTS = {
     "cli_improve": lambda: cli.main(["improve", "--smiles", "never-read.txt",
                                      "--out", "never-written"]),
     "cli_serve": lambda: cli.main(["serve"]),
+    "launch": lambda: launch.launch("time:sleep", 1, args=(0,)),
+    "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+    "dryrun_cli": lambda: dryrun.main(["2"]),
     "server_state": lambda: serve.ServerState(),
     "make_app": lambda: serve.make_app(),
     "sample_model_neighbors": lambda: molgen.sample_model_neighbors(

@@ -182,14 +182,28 @@ def test_device_and_host_paths_train_alike():
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3)
 
 
-def test_run_training_refuses_what_is_not_ported():
-    """A mesh (data parallelism) is refused; in-training generation metrics
-    are ported, and every ``gen_metrics_every`` steps a line of them is
-    logged."""
-    loader = tdp.Loader(tdp.synthetic_dataset(4), MCFG, batch_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.run_training(CFG, loader, mesh=object(), device="cpu")
-    res = tloop.run_training(CFG, loader, gen_metrics_every=1, max_steps=2, device="cpu")
+def test_run_training_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A mesh is ported: over a world of one rank (gloo, in this process)
+    ``run_training(mesh=make_mesh())`` logs the losses of the run without a
+    mesh, bit for bit. In-training generation metrics are ported, and every
+    ``gen_metrics_every`` steps a line of them is logged."""
+    import torch.distributed as dist
+
+    from multimodalspectraltransformer_torch import parallel
+
+    loader = lambda: tdp.Loader(tdp.synthetic_dataset(4), MCFG, batch_size=2)
+    plain = tloop.run_training(CFG, loader(), max_steps=2, device="cpu")
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    parallel.init_distributed(init_method=f"file://{tmp_path}/store", device="cpu")
+    try:
+        meshed = tloop.run_training(CFG, loader(), mesh=parallel.make_mesh(), max_steps=2,
+                                    device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert [x["train_loss"] for x in meshed.metrics.history] == [
+        x["train_loss"] for x in plain.metrics.history]
+    res = tloop.run_training(CFG, loader(), gen_metrics_every=1, max_steps=2, device="cpu")
     gm = [x for x in res.metrics.history if "gen_validity" in x]
     assert [x["step"] for x in gm] == [1, 2]
 
