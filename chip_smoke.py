@@ -119,7 +119,28 @@ Phases, one line of output each (or a few):
              and K2 launches (counters reset just before); (e) the sharded
              device dataset: each rank's gathered batches are the rows of
              the port's copy of JAX's ``epoch_row_batches_sharded``. Two
-             ranks time-slice one card: no figure here is a scaling figure.
+             ranks time-slice one card: no figure here is a scaling figure;
+11. drivers - the evaluation and data drivers at full width (phase3,
+             clip_r4, bf16), their output under ``chiprun_out/drivers/``:
+             (a) ``scripts/torch_accuracy_report.py`` from scratch (16
+             held-out molecules of ``--mw-band 0,350`` disjoint from
+             ``random_corpus(2000, seed=11)``, records simulated on the card
+             and cached as a directory, chunks of 8, beam 5, greedy in pool,
+             2 rounds), its K1/K2/K3 launches, stage seconds and mols/s a
+             chunk; run again it resumes every chunk with no launch and the
+             same numbers; from a fresh ``--out`` it reads the cache (the same
+             records) and with ``--sim-weights`` at the committed shift
+             weights gives the same report; (b) ``scripts/torch_eval_sweep.py``
+             on those 16 molecules in chunks of 4 over two shards in turn,
+             merged, against one shard; (c) ``scripts/torch_build_factory_cache.py``
+             on 64 molecules, then ``cli train --factory 64 --factory-cache``
+             for 2 bf16 steps with the simulator refused; (d) three
+             ``run_training`` snapshots averaged by
+             ``scripts/torch_average_checkpoints.py`` (held to numpy's float64
+             mean, leaf for leaf) and the newest exported in bf16 by
+             ``scripts/torch_export_latest.py``; (e) the four examples
+             (``examples/torch_0*.py``) at the JAX examples' settings; the
+             phase's seconds.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -142,6 +163,7 @@ without a CUDA device, and without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -2331,18 +2353,31 @@ def parallel_phase(dev, card: str, phase6_records, main) -> None:
         f"{ref['draw_global']['peak_bytes'] * gib:.3f} GiB as rank 0 of 2 (masks of "
         f"{PAR_BATCH} rows, sliced); {card}")
 
-    # (a) NCCL, one rank
+    # (a) NCCL, one rank. cuBLAS gives bitwise-equal results only with one
+    # stream active or a fixed workspace; NCCL adds streams, so the rank runs
+    # with the fixed workspace.
     t0 = time.perf_counter()
-    a = launch("chip_smoke:_rank_nccl_training", 1, args=(train_recs,), device="cuda",
-               backend="nccl", timeout=300)[0]
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        a = launch("chip_smoke:_rank_nccl_training", 1, args=(train_recs,), device="cuda",
+                   backend="nccl", timeout=300)[0]
+    finally:
+        if env_before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
     same_loss = a["plain"]["losses"] == a["mesh"]["losses"]
-    same_params = all(torch.equal(v, a["mesh"]["params"][k]) for k, v in a["plain"]["params"].items())
+    differ = {k: float((v.double() - a["mesh"]["params"][k].double()).abs().max())
+              for k, v in a["plain"]["params"].items() if not torch.equal(v, a["mesh"]["params"][k])}
+    same_params = not differ
+    worst = max(differ.items(), key=lambda kv: kv[1]) if differ else None
     log(f"[parallel] (a) one rank over {a['mesh']['backend']}: run_training 5 bf16 steps with "
         f"make_mesh() vs without: losses {'bit-identical' if same_loss else 'DIFFER'} "
         f"({a['mesh']['losses'][0]:.6f} ... {a['mesh']['losses'][-1]:.6f}), parameters "
-        f"{'bit-identical' if same_params else 'DIFFER'}; {a['mesh']['secs']:.2f} s vs "
-        f"{a['plain']['secs']:.2f} s; the launch took {time.perf_counter() - t0:.1f} s "
-        f"{'ok' if same_loss and same_params else 'FAIL'}")
+        f"{'bit-identical' if same_params else f'DIFFER in {len(differ)} tensors, worst {worst}'}; "
+        f"{a['mesh']['secs']:.2f} s vs {a['plain']['secs']:.2f} s; the launch took "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if same_loss and same_params else 'FAIL'}")
     if not (same_loss and same_params and len(a["mesh"]["losses"]) == 5):
         raise AssertionError("a one-rank NCCL mesh trains otherwise than no mesh")
 
@@ -2419,6 +2454,376 @@ def parallel_phase(dev, card: str, phase6_records, main) -> None:
     log(f"[parallel] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the evaluation and data drivers
+# ---------------------------------------------------------------------------
+
+DRIVERS_OUT = os.path.join("chiprun_out", "drivers")
+
+
+def _load_file(rel: str):
+    """A script or example of the repository, loaded as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3], rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _quiet(log_path: str):
+    """Standard output of the block appended to ``log_path`` (the drivers
+    print their whole reports)."""
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+def _launch_counts() -> dict:
+    from multimodalspectraltransformer_torch.ops import auction as k2
+    from multimodalspectraltransformer_torch.ops import beam_attention as k3
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+
+    return {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+
+
+def _reset_launches() -> None:
+    from multimodalspectraltransformer_torch.ops import auction as k2
+    from multimodalspectraltransformer_torch.ops import beam_attention as k3
+    from multimodalspectraltransformer_torch.ops import decode_attention as k1
+
+    for mod in (k1, k2, k3):
+        mod.reset_launches()
+
+
+def _record_fields(r) -> tuple:
+    return (r.sample_id, r.smiles, r.h1, r.c13, r.hsqc, r.cosy)
+
+
+def drivers_report(dev, card: str, log_path: str) -> list:
+    """(a): the accuracy report generated from scratch, resumed, read from its
+    records cache, and with ``--sim-weights`` at the committed shift weights
+    and at others; returns the held-out SMILES."""
+    import shutil
+
+    import torch
+
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.sim import distill
+
+    acc = _load_file(os.path.join("scripts", "torch_accuracy_report.py"))
+    out = os.path.join(DRIVERS_OUT, "acc")
+    cache = os.path.join(DRIVERS_OUT, "heldout_csv") + "/"
+
+    def argv(out_dir, *extra):
+        return ["--params", PHASE3, "--train-n", "2000", "--train-seed", "11", "--heldout-seed",
+                "999", "--n", "16", "--mw-band", "0,350", "--chunk-size", "8", "--beam", "5",
+                "--mix", "--rounds", "2", "--clip-params", CLIP_R4, "--records-cache", cache,
+                "--out", out_dir, "--report-dir", out_dir, "--tag", "drivers", *extra]
+
+    def run(out_dir, *extra):
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _quiet(log_path):
+            res = acc.run(acc.parse_args(argv(out_dir, *extra)))
+        return res, time.perf_counter() - t0, _launch_counts()
+
+    first, secs, launches = run(out)
+    rep = first["report"]
+    if rep["n"] != 16 or not os.path.exists(os.path.join(cache, "data_1H_0.csv")):
+        raise AssertionError(f"the report evaluated {rep['n']} molecules or wrote no records cache")
+    if any(launches[k] <= 0 for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"the report with --beam 5 launched {launches}")
+    t = first["seconds"]
+    per_chunk = ", ".join(f"{len(c['molecules']) / c['wall_s']:.3f}" for c in first["chunks"])
+    log(f"[drivers] (a) report from scratch: 16 held-out molecules (train 2000, MW 0-350), "
+        f"2 chunks of 8, fan-out 128, 2 rounds, beam 5, greedy in pool, clip_r4, bf16: "
+        f"{secs:.2f} s (held-out list {t['heldout']:.2f} s, records simulated on the card "
+        f"{t['records']:.2f} s, chunks {t['chunks']:.2f} s); mols/s per chunk {per_chunk}; "
+        f"launches K1={launches['K1']} K2={launches['K2']} K3={launches['K3']}; greedy exact "
+        f"{rep['greedy_exact']:.4f}, MNS {rep['mns_exact']:.4f}, top-1 by error "
+        f"{rep['top_k_by_error'].get('1', float('nan')):.4f}; {card}")
+    log("[drivers] (a) stage seconds: " + ", ".join(f"{k} {v:.3f}"
+                                                   for k, v in rep["stage_seconds"].items()))
+
+    second, secs2, launches2 = run(out)
+    keep = lambda r, drop=("wall_s_total",): {k: v for k, v in r.items() if k not in drop}
+    same = keep(second["report"]) == keep(rep)
+    log(f"[drivers] (a) resumed: {secs2:.2f} s, launches {launches2}, report numbers "
+        f"{'equal' if same else 'DIFFER'}")
+    if any(launches2.values()) or not same:
+        raise AssertionError("the resumed report recomputed a chunk or reports other numbers")
+
+    # a fresh --out reads the records cache the first run wrote
+    for d in ("acc_cache", "acc_simw", "acc_moved"):
+        os.makedirs(os.path.join(DRIVERS_OUT, d), exist_ok=True)
+        shutil.copy(os.path.join(out, "heldout_smiles.json"), os.path.join(DRIVERS_OUT, d))
+    # what the harness is given and gives back in each chunk of the runs below
+    seen = []
+    real_evaluate = harness.evaluate_molecules
+
+    def spy(*a, **k):
+        res = real_evaluate(*a, **k)
+        seen.append((k["sim_kwargs"], res[0]))
+        return res
+
+    harness.evaluate_molecules = spy
+    try:
+        third, secs3, _ = run(os.path.join(DRIVERS_OUT, "acc_cache"))
+        fourth, secs4, _ = run(os.path.join(DRIVERS_OUT, "acc_simw"), "--sim-weights",
+                               distill.WEIGHTS_DIR)
+        # the committed shift weights scaled by 1.1: the candidates' errors move
+        moved, _ = distill.load_shift_weights(distill.WEIGHTS_DIR, dev)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.mul_(1.1)
+        with open(os.path.join(distill.WEIGHTS_DIR, "nmr_shift.json")) as f:
+            meta = json.load(f)
+        moved_dir = os.path.join(DRIVERS_OUT, "shift_moved")
+        distill.save_shift_weights(moved, meta["stats"], meta["report"], moved_dir)
+        fifth, secs5, _ = run(os.path.join(DRIVERS_OUT, "acc_moved"), "--sim-weights", moved_dir)
+    finally:
+        harness.evaluate_molecules = real_evaluate
+    a, b = first["records"], third["records"]
+    same_records = ([_record_fields(r) for r in a] == [_record_fields(r) for r in b]
+                    and all(np.array_equal(np.asarray(y.ir, np.float32), x.ir)
+                            for x, y in zip(a, b)))
+    log(f"[drivers] (a) from the records cache: {len(b)} records "
+        f"{'equal' if same_records else 'DIFFER'} to the simulated ones (IR as float32); "
+        f"{secs3:.2f} s")
+    if not same_records:
+        raise AssertionError("the records cache reads back other records")
+    drop = ("wall_s_total", "stage_seconds", "sim_weights", "heldout")
+    same_sw = keep(fourth["report"], drop) == keep(third["report"], drop)
+    committed, _ = distill.load_shift_weights(distill.WEIGHTS_DIR, dev)
+    n_chunks = len(first["chunks"])
+    given = [sim for sim, _ in seen]
+    reached = (len(given) == 3 * n_chunks and given[:n_chunks] == [None] * n_chunks
+               and all(_same_weights(sim["shift_model"], committed)
+                       for sim in given[n_chunks:2 * n_chunks])
+               and all(_same_weights(sim["shift_model"], moved) for sim in given[2 * n_chunks:]))
+    log(f"[drivers] (a) --sim-weights {distill.WEIGHTS_DIR}: report "
+        f"{'equal' if same_sw else 'DIFFERS'} to the run without it; {secs4:.2f} s; the "
+        f"harness {'got' if reached else 'did NOT get'} the model of each --sim-weights")
+    if not same_sw:
+        raise AssertionError("--sim-weights at the committed weights changed the report")
+    if not reached:
+        raise AssertionError("the shift model of --sim-weights did not reach the harness")
+
+    def errors(results):
+        return [(c.smiles, c.hsqc_error, c.cosy_error) for rs in results for r in rs
+                for c in r.candidates]
+
+    plain = errors(res for _, res in seen[:n_chunks])
+    shifted = errors(res for _, res in seen[2 * n_chunks:])
+    n_moved = sum(bool(np.isfinite(a[1:] + b[1:]).all()) and a[1:] != b[1:]
+                  for a, b in zip(plain, shifted))
+    log(f"[drivers] (a) --sim-weights at the committed weights scaled by 1.1: the same "
+        f"{len(shifted)} candidates, {n_moved} with other HSQC/COSY errors; {secs5:.2f} s")
+    if [c[0] for c in plain] != [c[0] for c in shifted] or not n_moved:
+        raise AssertionError("other shift weights left the candidates' errors where they were")
+    return [r.smiles for r in first["records"]]
+
+
+def _same_weights(a, b) -> bool:
+    """Whether two modules hold equal tensors under the same names."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def drivers_sweep(heldout: list, card: str, log_path: str) -> None:
+    """(b): the chunked sweep over two shards against one shard."""
+    sweep = _load_file(os.path.join("scripts", "torch_eval_sweep.py"))
+    smiles = os.path.join(DRIVERS_OUT, "sweep_smiles.txt")
+    with open(smiles, "w") as f:
+        f.write("\n".join(heldout) + "\n")
+    common = ["--smiles", smiles, "--chunk-size", "4", "--params", PHASE3, "--rounds", "2"]
+    one, two = os.path.join(DRIVERS_OUT, "sweep1"), os.path.join(DRIVERS_OUT, "sweep2")
+    t0 = time.perf_counter()
+    with _quiet(log_path):
+        sweep.main([*common, "--out", one])
+        t1 = time.perf_counter()
+        for s in (0, 1):
+            sweep.main([*common, "--out", two, "--shard", str(s), "--num-shards", "2"])
+    t2 = time.perf_counter()
+    with open(os.path.join(one, "summary.json")) as f:
+        a = json.load(f)
+    with open(os.path.join(two, "summary.json")) as f:
+        b = json.load(f)
+    chunks_equal = True
+    for ci in range(4):
+        with open(os.path.join(one, f"chunk_{ci:04d}.json")) as f:
+            x = json.load(f)
+        with open(os.path.join(two, f"chunk_{ci:04d}.json")) as f:
+            y = json.load(f)
+        chunks_equal &= x["digest"] == y["digest"] and x["molecules"] == y["molecules"]
+    ok = (chunks_equal and a["n"] == b["n"] == len(heldout)
+          and a["greedy_exact"] == b["greedy_exact"]
+          and abs(a["mean_greedy_tanimoto"] - b["mean_greedy_tanimoto"]) <= 1e-12)
+    with open(os.path.join(one, "summary_shard0.json")) as f:
+        mps = json.load(f)["mols_per_sec"]
+    log(f"[drivers] (b) sweep, {len(heldout)} molecules in chunks of 4 (phase3, fan-out 128, 2 "
+        f"rounds, float32): one shard {t1 - t0:.2f} s ({mps:.3f} mols/s in its chunks), two "
+        f"shards in turn {t2 - t1:.2f} s; merged greedy exact {b['greedy_exact']:.4f} and "
+        f"tanimoto {b['mean_greedy_tanimoto']:.6f} {'equal' if ok else 'DIFFER'} to one shard's, "
+        f"every chunk {'equal' if chunks_equal else 'DIFFERS'}; {card}")
+    if not ok:
+        raise AssertionError("the merged sweep differs from the one-shard sweep")
+
+
+def drivers_cache_and_checkpoints(dev, card: str, log_path: str, tmp: str) -> None:
+    """(c) the factory-cache builder and ``cli train`` from its cache; (d)
+    three ``run_training`` snapshots averaged and exported."""
+    import torch
+
+    from multimodalspectraltransformer_torch import cli
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models import convert
+    from multimodalspectraltransformer_torch.sim import factory
+    from multimodalspectraltransformer_torch.train import checkpoint as ckpt
+    from multimodalspectraltransformer_torch.train.loop import run_training
+    from multimodalspectraltransformer_torch.utils.config import (DataConfig, MMTConfig,
+                                                                  ModelConfig, TrainConfig)
+
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("\n".join(molrandom.random_corpus(64, seed=4242)) + "\n")
+    cache = os.path.join(DRIVERS_OUT, "factory64.pkl")
+    builder = _load_file(os.path.join("scripts", "torch_build_factory_cache.py"))
+    t0 = time.perf_counter()
+    with _quiet(log_path):
+        builder.main(["--corpus", corpus, "--n", "64", "--seed", "4242", "--out", cache,
+                      "--chunk", "32", "--checkpoint-every", "1"])
+    secs = time.perf_counter() - t0
+    records = dp.load_records_pickle(cache)["records"]
+
+    real = factory.simulate_records
+
+    def refuse(*a, **k):
+        raise AssertionError("cli train simulated records despite --factory-cache")
+
+    factory.simulate_records = refuse
+    try:
+        t1 = time.perf_counter()
+        with _quiet(log_path):
+            rc = cli.main(["train", "--factory", "64", "--factory-seed", "4242", "--factory-cache",
+                           cache, "--steps", "2", "--batch-size", "16", "--bf16",
+                           "--out", os.path.join(tmp, "train")])
+        secs_train = time.perf_counter() - t1
+    finally:
+        factory.simulate_records = real
+    with open(log_path) as f:
+        line = json.loads([ln for ln in f.read().splitlines() if ln.startswith('{"steps"')][-1])
+    log(f"[drivers] (c) cache builder: {len(records)} records of 64 molecules in {secs:.2f} s "
+        f"({len(records) / secs:.2f} mols/s, simulated on the card, 2 chunks of 32); cli train "
+        f"--factory 64 --factory-cache, 2 bf16 steps at full width: rc {rc}, steps "
+        f"{line['steps']}, loss {line['train_loss']:.4f}, {secs_train:.2f} s, nothing simulated; "
+        f"{card}")
+    if rc != 0 or line["steps"] != 2 or len(records) != 64:
+        raise AssertionError("cli train did not take 2 steps on the builder's cache")
+
+    # (d) three snapshots of run_training at full width
+    run_dir = os.path.join(tmp, "run")
+    cfg = MMTConfig(model=ModelConfig(), train=TrainConfig(learning_rate=3e-5,
+                                                           mixed_precision=True,
+                                                           save_interval_steps=1,
+                                                           keep_checkpoints=3),
+                    data=DataConfig(batch_size=16))
+    t2 = time.perf_counter()
+    run_training(cfg, dp.Loader(records, cfg.model, batch_size=16), max_steps=3,
+                 checkpoint_dir=os.path.join(run_dir, "ckpt"), device=dev)
+    t3 = time.perf_counter()
+    mgr = ckpt.CheckpointManager(os.path.join(run_dir, "ckpt"))
+    snaps = [mgr.restore_params(s) for s in mgr.steps()]
+    avg_path = os.path.join(tmp, "avg.msgpack")
+    with _quiet(log_path):
+        rc_avg = _load_file(os.path.join("scripts", "torch_average_checkpoints.py")).main(
+            ["--ckpt-dir", os.path.join(run_dir, "ckpt"), "--out", avg_path])
+        rc_bf16 = _load_file(os.path.join("scripts", "torch_export_latest.py")).main(
+            [run_dir, os.path.join(tmp, "latest.msgpack.gz")])
+    t4 = time.perf_counter()
+    got = convert.from_jax_params(convert.read_msgpack(avg_path))
+    mean_ok = all(np.array_equal(
+        got[k].numpy(), (sum(s[k].numpy().astype(np.float64) for s in snaps) / 3.0).astype(np.float32))
+        for k in snaps[0])
+    bf16 = convert.read_msgpack(os.path.join(tmp, "latest.msgpack.gz"))
+    want = convert.to_jax_params(snaps[-1])
+    flat = lambda t: [v for _, v in sorted(_flatten(t).items())]
+    bf16_ok = all(x.dtype == torch.bfloat16 and torch.equal(x, torch.from_numpy(y).to(torch.bfloat16))
+                  for x, y in zip(flat(bf16), flat(want)))
+    moved = max(float((snaps[2][k] - snaps[0][k]).abs().max()) for k in snaps[0])
+    log(f"[drivers] (d) run_training 3 bf16 steps at full width with a snapshot a step "
+        f"({mgr.steps()}) in {t3 - t2:.2f} s; the average {'equals' if mean_ok else 'DIFFERS from'} "
+        f"the float64 numpy mean, leaf for leaf (the snapshots move by up to {moved:.3e}); the bf16 "
+        f"export of the newest {'equals' if bf16_ok else 'DIFFERS from'} its parameters rounded "
+        f"to bf16; averaging and export {t4 - t3:.2f} s")
+    if rc_avg != 0 or rc_bf16 != 0 or mgr.steps() != [1, 2, 3] or not (mean_ok and bf16_ok) \
+            or not moved > 0:
+        raise AssertionError("the checkpoint averaging or the bf16 export is wrong")
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def drivers_examples(dev, card: str, log_path: str) -> None:
+    """(e): the four examples on the card at the JAX examples' settings."""
+    examples = (
+        ("torch_01_data_generation",
+         lambda m: m.main(os.path.join(DRIVERS_OUT, "example01"), device=dev),
+         lambda out: len(out) == 4),
+        ("torch_02_train_and_evaluate", lambda m: m.main(device=dev),
+         lambda out: out[0].steps > 0 and out[1].n == 8),
+        ("torch_03_explainability",
+         lambda m: m.main(os.path.join(DRIVERS_OUT, "example03.svg"), device=dev),
+         lambda out: len(out["atom_values"]) > 0),
+        ("torch_04_improvement_cycle", lambda m: m.main(device=dev),
+         lambda out: [r.cycle for r in out] == [0, 1]),
+    )
+    times = {}
+    for name, call, ok in examples:
+        mod = _load_file(os.path.join("examples", name + ".py"))
+        t0 = time.perf_counter()
+        with _quiet(log_path):
+            out = call(mod)
+        times[name] = time.perf_counter() - t0
+        if not ok(out):
+            raise AssertionError(f"examples/{name}.py did not give what it should")
+    log("[drivers] (e) examples on the card: " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        + f"; {card}")
+
+
+def drivers_phase(dev, card: str) -> None:
+    """Phase 11 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRIVERS_OUT, ignore_errors=True)
+    os.makedirs(DRIVERS_OUT)
+    log_path = os.path.join(DRIVERS_OUT, "drivers.log")
+    heldout = drivers_report(dev, card, log_path)
+    drivers_sweep(heldout, card, log_path)
+    torch.cuda.empty_cache()
+    # snapshots of the full model (about 300 MB each) stay out of chiprun_out
+    with tempfile.TemporaryDirectory() as tmp:
+        drivers_cache_and_checkpoints(dev, card, log_path, tmp)
+    drivers_examples(dev, card, log_path)
+    log(f"[drivers] the phase took {time.perf_counter() - t_phase:.1f} s (the drivers' own output: "
+        f"{log_path})")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -2478,6 +2883,8 @@ def main() -> int:
     tools_phase(dev, card, phase6_records, (records, model, dcfg))
     torch.cuda.empty_cache()  # the ranks of phase 10 share this card
     parallel_phase(dev, card, phase6_records, (records, model, dcfg))
+    torch.cuda.empty_cache()
+    drivers_phase(dev, card)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

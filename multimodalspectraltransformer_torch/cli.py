@@ -89,15 +89,18 @@ def _load_records(args, device):
 
 def _factory_records(args, device):
     """``--factory N`` molecules simulated, or read from ``--factory-cache``:
-    a pickle that this command wrote, keyed by N and the corpus seed."""
+    a pickle keyed by N and the corpus seed, written by this command, by
+    ``scripts/torch_build_factory_cache.py`` or by the JAX package's
+    counterparts (``data.pipeline.load_records_pickle`` reads it without
+    JAX)."""
     from .data import molrandom
+    from .data.pipeline import load_records_pickle
     from .sim import factory as sim_factory
 
     fseed = args.factory_seed if args.factory_seed >= 0 else args.seed
     cache = args.factory_cache
     if cache and os.path.exists(cache):
-        with open(cache, "rb") as f:
-            cached = pickle.load(f)
+        cached = load_records_pickle(cache)
         if cached.get("n") != args.factory or cached.get("seed") != fseed:
             raise SystemExit(f"--factory-cache {cache} was generated with n={cached.get('n')} "
                              f"seed={cached.get('seed')}, but this run asked for "
@@ -418,7 +421,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--factory-seed", type=int, default=-1,
                         help="corpus seed (default: --seed)")
         sp.add_argument("--factory-cache", default="",
-                        help="pickle cache of the factory records (written by this command)")
+                        help="pickle cache of the factory records (written by this command or "
+                             "the cache builder, of either package)")
         sp.add_argument("--csv-1h", default="")
         sp.add_argument("--csv-13c", default="")
         sp.add_argument("--csv-hsqc", default="")

@@ -19,8 +19,10 @@ from __future__ import annotations
 import ast
 import csv
 import dataclasses
+import gzip
 import hashlib
 import os
+import pickle
 import random
 import sys
 from dataclasses import dataclass, field
@@ -107,6 +109,47 @@ def load_spectra_csvs(
             continue
         records.append(SampleRecord(sid, smiles, ir=ir, **fields))
     return records
+
+
+# the names a record pickle may hold: numpy's array and scalar reconstructors
+# (under numpy 1.x's ``numpy.core`` paths too), the builtins of plain data and
+# protocol 2's bytes encoding
+_PICKLE_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                         "numpy.core.numeric", "numpy._core.numeric")
+_PICKLE_NUMPY_NAMES = {"_reconstruct", "scalar", "dtype", "ndarray", "_frombuffer"}
+_PICKLE_BUILTINS = {"list", "dict", "tuple", "set", "frozenset", "int", "float", "complex",
+                    "bool", "str", "bytes", "bytearray", "slice", "range"}
+_RECORD_CLASSES = ("multimodalspectraltransformer_tpu.data.pipeline",
+                   "multimodalspectraltransformer_torch.data.pipeline")
+
+
+class _RecordUnpickler(pickle.Unpickler):
+    """Unpickles record lists that either package wrote, without importing
+    the JAX package: its ``SampleRecord`` (the same fields) becomes the
+    port's; numpy and plain builtins pass; any other name is refused."""
+
+    def find_class(self, module: str, name: str):
+        if module in _RECORD_CLASSES and name == "SampleRecord":
+            return SampleRecord
+        if ((module in _PICKLE_NUMPY_MODULES and name in _PICKLE_NUMPY_NAMES)
+                or module == "numpy.dtypes"
+                or (module == "builtins" and name in _PICKLE_BUILTINS)
+                or (module, name) == ("_codecs", "encode")):
+            return super().find_class(module, name)
+        if module.startswith("multimodalspectraltransformer_tpu"):
+            raise pickle.UnpicklingError(
+                f"record pickle holds {module}.{name}: only the JAX package's SampleRecord "
+                "maps onto the port")
+        raise pickle.UnpicklingError(f"record pickle holds {module}.{name}, which a record "
+                                     "pickle never needs; refusing to load it")
+
+
+def load_records_pickle(path: str):
+    """What a records pickle holds (``.gz`` or plain): a factory cache's
+    ``{"n", "seed", "records"}`` dict or a bare record list, written by the
+    JAX package or the port. Its ``SampleRecord`` objects are the port's."""
+    with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
+        return _RecordUnpickler(f).load()
 
 
 def ref_testset_split(sample_id: str) -> str:

@@ -61,7 +61,8 @@ class CheckpointManager:
         self.keep = keep
         self.save_interval_steps = save_interval_steps
 
-    def _steps(self) -> list[int]:
+    def steps(self) -> list[int]:
+        """The saved steps, oldest first."""
         return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(self._dir)) if m)
 
     def _path(self, step: int) -> str:
@@ -98,7 +99,7 @@ class CheckpointManager:
         tmp = f"{path}.tmp{os.getpid()}"
         torch.save(payload, tmp)
         os.replace(tmp, path)
-        for old in self._steps()[: -self.keep] if self.keep > 0 else []:
+        for old in self.steps()[: -self.keep] if self.keep > 0 else []:
             os.remove(self._path(old))
         if shard is not None:
             dist.barrier()
@@ -134,10 +135,18 @@ class CheckpointManager:
         template.step = int(payload["step"])
         return template
 
+    def restore_params(self, step: Optional[int] = None) -> Optional[dict[str, torch.Tensor]]:
+        """The parameters saved at ``step`` (the latest by default) as a state
+        dict on the CPU, without a template state; None if there is none."""
+        target = step if step is not None else self.latest_step()
+        if target is None or not os.path.exists(self._path(target)):
+            return None
+        return torch.load(self._path(target), map_location="cpu", weights_only=True)["params"]
+
     def latest_step(self) -> Optional[int]:
         if not self.writer:
             return self._followed
-        steps = self._steps()
+        steps = self.steps()
         return steps[-1] if steps else None
 
     def wait(self) -> None:

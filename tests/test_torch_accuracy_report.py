@@ -4,7 +4,6 @@ phase3 and clip_r4, a few molecules in chunks of two."""
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import shutil
@@ -12,7 +11,7 @@ import shutil
 import pytest
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_test_support import REPO, load
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -25,17 +24,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _script():
-    spec = importlib.util.spec_from_file_location(
-        "torch_accuracy_report", os.path.join(REPO, "scripts", "torch_accuracy_report.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_report_runs_on_cpu_with_the_jax_reports_keys(tmp_path):
     shutil.copy(os.path.join(REPO, "runs", "accuracy_r3", "heldout_smiles.json"), tmp_path)
-    rc = _script().main([
+    rc = load("scripts/torch_accuracy_report.py").main([
         "--device", "cpu", "--n", "3", "--chunk-size", "2", "--fanout", "8", "--multinom-runs", "3",
         "--rounds", "2", "--out", str(tmp_path), "--report-dir", str(tmp_path), "--tag", "t",
         "--params", os.path.join(REPO, "weights", "mmt_r4_phase3.msgpack.gz"),

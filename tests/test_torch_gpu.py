@@ -491,3 +491,41 @@ def test_two_ranks_build_the_kernels_at_once(cuda_device, tmp_path):
     lib = str(tmp_path / os.path.basename(pkg) / "build" / "libmmtkernels.so")
     assert [out.strip() for out, _ in outs] == [lib, lib]
     assert not [f for f in os.listdir(os.path.dirname(lib)) if "tmp" in f]
+
+
+@pytest.mark.gpu
+def test_accuracy_report_with_beam_launches_k3(cuda_device, tmp_path):
+    """``scripts/torch_accuracy_report.py`` on the card at n=4 with ``--beam
+    2`` (phase3, the pinned list and records): the beam hypotheses go
+    through K3, the decodes through K1 and the scorer through K2; a rerun
+    resumes both chunks and launches nothing."""
+    import importlib.util
+    import json
+    import os
+    import shutil
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_accuracy_report", os.path.join(repo, "scripts", "torch_accuracy_report.py"))
+    acc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(acc)
+    shutil.copy(os.path.join(repo, "runs", "accuracy_r3", "heldout_smiles.json"), tmp_path)
+    argv = ["--n", "4", "--chunk-size", "2", "--fanout", "16", "--multinom-runs", "4",
+            "--rounds", "2", "--beam", "2", "--mix", "--out", str(tmp_path),
+            "--report-dir", str(tmp_path), "--tag", "gpu",
+            "--params", os.path.join(repo, "weights", "mmt_r4_phase3.msgpack.gz"),
+            "--records-cache", os.path.join(repo, "runs", "accuracy_r2b", "heldout_csv.tar.gz")]
+    for mod in (tk1, tk2, tk3):
+        mod.reset_launches()
+    first = acc.run(acc.parse_args(argv))["report"]
+    counts = (tk1.launches, tk2.launches, tk3.launches)
+    assert all(c > 0 for c in counts), counts
+    assert first["n"] == 4 and first["beam_candidates"] == 2 and first["greedy_in_pool"]
+    for mod in (tk1, tk2, tk3):
+        mod.reset_launches()
+    again = acc.run(acc.parse_args(argv))["report"]
+    assert (tk1.launches, tk2.launches, tk3.launches) == (0, 0, 0)
+    drop = ("wall_s_total",)
+    assert {k: v for k, v in again.items() if k not in drop} == {
+        k: v for k, v in first.items() if k not in drop}
+    assert json.load(open(tmp_path / "ACCURACY_gpu.json"))["n"] == 4

@@ -23,6 +23,7 @@ from multimodalspectraltransformer_torch.sim import distill, factory
 from multimodalspectraltransformer_torch.train import contrastive, improvement_cycle, loop, molgen
 from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig
 from multimodalspectraltransformer_torch.utils.device import resolve_device
+from torch_test_support import REPO, load
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -35,7 +36,6 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "multimodalspectraltransformer_torch." + m
     for m in ("models.convert", "models.mmt", "ops.decode_attention", "ops.auction",
@@ -50,8 +50,14 @@ PORT_MODULES = [
               "utils.profiling", "utils.roofline", "parallel", "parallel.mesh",
               "parallel.collectives", "parallel.launch", "parallel.dryrun")
 ]
-PORT_SCRIPTS = [os.path.join(REPO, "scripts", n) for n in (
-    "torch_accuracy_report.py", "torch_train_sim_models.py", "torch_heldout_precision.py")]
+DRIVER_SCRIPTS = ("torch_accuracy_report", "torch_eval_sweep", "torch_build_factory_cache",
+                  "torch_regen_heldout_csv", "torch_prewarm_featcache",
+                  "torch_prewarm_clip_featcache", "torch_average_checkpoints", "torch_export_latest")
+EXAMPLES = ("torch_01_data_generation", "torch_02_train_and_evaluate", "torch_03_explainability",
+            "torch_04_improvement_cycle")
+PORT_SCRIPTS = [os.path.join(REPO, "scripts", n + ".py") for n in (
+    *DRIVER_SCRIPTS, "torch_train_sim_models", "torch_heldout_precision")]
+PORT_SCRIPTS += [os.path.join(REPO, "examples", n + ".py") for n in EXAMPLES]
 PORT_SCRIPTS.append(os.path.join(REPO, "chip_smoke.py"))
 
 _BLOCKED_IMPORT = r"""
@@ -173,6 +179,25 @@ ENTRY_POINTS = {
                                              np.ones((1, 8))),
     "cli_vectorize": lambda: cli.main(["vectorize", "--smiles", "never-read.txt",
                                        "--out", "never-written"]),
+    "accuracy_report": lambda: load("scripts/torch_accuracy_report.py").main(
+        ["--n", "1", "--out", "never-written"]),
+    "eval_sweep": lambda: load("scripts/torch_eval_sweep.py").main(
+        ["--synthetic", "2", "--out", "never-written"]),
+    "build_factory_cache": lambda: load("scripts/torch_build_factory_cache.py").main(
+        ["--corpus", "never-read.txt", "--n", "1", "--seed", "0", "--out", "never-written"]),
+    "regen_heldout_csv": lambda: load("scripts/torch_regen_heldout_csv.py").main(
+        ["--smiles", "never-read.json", "--out", "never-written"]),
+    "prewarm_featcache": lambda: load("scripts/torch_prewarm_featcache.py").main(
+        ["--factory", "4", "--factory-cache", "never-read.pkl", "--feature-cache", "never-written"]),
+    "prewarm_clip_featcache": lambda: load("scripts/torch_prewarm_clip_featcache.py").main(
+        ["--factory", "4", "--factory-cache", "never-read.pkl", "--feature-cache", "never-written"]),
+    "average_checkpoints": lambda: load("scripts/torch_average_checkpoints.py").main(
+        ["--ckpt-dir", "never-read", "--out", "never-written"]),
+    "export_latest": lambda: load("scripts/torch_export_latest.py").main(["never-read", "never-written"]),
+    "example_01": lambda: load("examples/torch_01_data_generation.py").main("never-written"),
+    "example_02": lambda: load("examples/torch_02_train_and_evaluate.py").main(),
+    "example_03": lambda: load("examples/torch_03_explainability.py").main("never-written.svg"),
+    "example_04": lambda: load("examples/torch_04_improvement_cycle.py").main(),
 }
 
 
