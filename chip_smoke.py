@@ -99,7 +99,7 @@ Phases, one line of output each (or a few):
              process started by ``parallel/launch.py`` on this card, against
              one process on it: (a) one rank over NCCL, ``run_training`` for
              5 bf16 steps from phase3 with ``make_mesh()`` and without, bit
-             for bit; (b) two ranks over gloo as (data 2), one fp32 step
+             for bit, both under deterministic algorithms; (b) two ranks over gloo as (data 2), one fp32 step
              (TF32 off, dropout on) at full width from phase3, batch 64:
              loss within 2e-5 relative, gradients within 5e-5 of each leaf's
              largest magnitude, the updated parameters within 5e-5 of theirs
@@ -140,7 +140,37 @@ Phases, one line of output each (or a few):
              mean, leaf for leaf) and the newest exported in bf16 by
              ``scripts/torch_export_latest.py``; (e) the four examples
              (``examples/torch_0*.py``) at the JAX examples' settings; the
-             phase's seconds.
+             phase's seconds;
+12. campaign - the reference-test-set adaptation scripts at full width
+             (phase3, bf16 decoding), their output under
+             ``chiprun_out/campaign/``: (a) a stand-in for the shipped test
+             set (no measure of accuracy on the reference's data): two
+             disjoint sets of 96 molecules of ``random_corpus(192,
+             min_mw=250, max_mw=350)`` with ids in both halves of the split,
+             simulated on the card by the committed shift weights scaled by
+             1.1 and written in the shipped headerless CSV format, 13C/HSQC/
+             COSY of the first set and 1H of the second; (b)
+             ``scripts/torch_sgnn_adapt.py`` on it, 300 steps at batch 128:
+             the assignment counts, ms a step, the eval half's metrics
+             before and after (its 13C nearest-peak MAE must fall); (c) the
+             corpus chain: ``torch_zinc_corpus`` (256 molecules seeded from
+             the adapt half), ``torch_build_factory_cache`` on it,
+             ``torch_r4_mem_control --dup 4``, ``torch_build_mixture_corpus``,
+             ``torch_build_sgnn_corpus --n 256`` with (b)'s weights (its
+             simulation rate), each pickle's count and ids checked, then
+             ``cli train`` from the mixture for 2 bf16 steps with the
+             simulator refused; (d) ``torch_control_adapted_sim_eval`` on 8
+             adapt-half molecules with (b)'s weights, the K1 and K2 launches
+             counted from 0, mols/s, every scored error finite; (e)
+             ``torch_real_data_demo`` on 5 records of (a) in the AZ format
+             (10 and 20 steps a fold, fan-out 16, 2 rounds): after each arm-1
+             fold every tensor but ``real_data_linear`` bit-equal to phase3,
+             after each arm-2 fold only ``decoder``, ``fc_out`` and
+             ``real_data_linear`` moved, the K1 launches under the blend, the
+             folds' seconds; (f) ``torch_chemotype_stats`` and
+             ``torch_make_r3_corpus`` (slabs cut to 2000/500/500) on this
+             machine; the committed simulator weights unchanged; the phase's
+             seconds.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -1202,7 +1232,8 @@ class _Http:
 
 def write_az_example(out_dir: str, records) -> None:
     """``records`` in the AZ example format that ``load_real_example`` reads:
-    semicolon CSVs per modality and ``real_IR/<sample-id>.csv``."""
+    semicolon CSVs per modality and ``real_IR/<sample-id>.csv`` (for the
+    records that have IR)."""
     os.makedirs(os.path.join(out_dir, "real_IR"), exist_ok=True)
     for key, attr in (("1H", "h1"), ("13C", "c13"), ("HSQC", "hsqc"), ("COSY", "cosy")):
         with open(os.path.join(out_dir, f"real_{key}_with_AZ_SMILES_v3.csv"), "w") as f:
@@ -1211,7 +1242,7 @@ def write_az_example(out_dir: str, records) -> None:
                 shifts = [[float(v) for v in p] for p in getattr(r, attr)] if key != "13C" \
                     else [float(v) for v in r.c13]
                 f.write(f"{r.sample_id};{shifts};SN{i};AZ{i};{r.smiles}\n")
-    for r in records:
+    for r in (r for r in records if r.ir is not None):
         with open(os.path.join(out_dir, "real_IR", f"{r.sample_id}.csv"), "w") as f:
             f.write("wavelength,spectra\n")
             f.writelines(f"{400 + 2 * i},{float(v)}\n" for i, v in enumerate(r.ir))
@@ -2159,7 +2190,11 @@ def _harness_run(records, dcfg, dev, mesh=None, clip_bundle=None, warm: bool = F
 def _rank_nccl_training(records) -> dict:
     """Check (a), in a world of one rank over NCCL: ``run_training`` for 5
     bf16 steps from phase3, without a mesh and with ``make_mesh()``; both
-    runs' losses and parameters."""
+    runs' losses and parameters. Both runs use PyTorch's deterministic
+    algorithms: the CUDA backward of ``F.embedding`` otherwise sums a token's
+    rows in a varying order, and two runs of the same path can differ in
+    ``embed_trg.weight`` (7 of 40 runs on an H100 differed from the first
+    there; ``scripts/torch_train_determinism.py`` repeats this)."""
     import torch
 
     from multimodalspectraltransformer_torch import parallel
@@ -2168,6 +2203,7 @@ def _rank_nccl_training(records) -> dict:
     from multimodalspectraltransformer_torch.train import loop
 
     dev = _rank_device()
+    torch.use_deterministic_algorithms(True)
     _, _, bf16 = _par_cfgs()
     init = convert.from_jax_params(convert.read_msgpack(PHASE3))
     opts = dp.FeaturizeOptions(use_given_smiles_form=True)
@@ -2353,9 +2389,10 @@ def parallel_phase(dev, card: str, phase6_records, main) -> None:
         f"{ref['draw_global']['peak_bytes'] * gib:.3f} GiB as rank 0 of 2 (masks of "
         f"{PAR_BATCH} rows, sliced); {card}")
 
-    # (a) NCCL, one rank. cuBLAS gives bitwise-equal results only with one
-    # stream active or a fixed workspace; NCCL adds streams, so the rank runs
-    # with the fixed workspace.
+    # (a) NCCL, one rank, with deterministic algorithms. cuBLAS gives
+    # bitwise-equal results only with one stream active or a fixed workspace;
+    # NCCL adds streams, so the rank runs with the fixed workspace (which
+    # deterministic algorithms also require).
     t0 = time.perf_counter()
     env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -2372,7 +2409,8 @@ def parallel_phase(dev, card: str, phase6_records, main) -> None:
               for k, v in a["plain"]["params"].items() if not torch.equal(v, a["mesh"]["params"][k])}
     same_params = not differ
     worst = max(differ.items(), key=lambda kv: kv[1]) if differ else None
-    log(f"[parallel] (a) one rank over {a['mesh']['backend']}: run_training 5 bf16 steps with "
+    log(f"[parallel] (a) one rank over {a['mesh']['backend']}, deterministic algorithms: "
+        f"run_training 5 bf16 steps with "
         f"make_mesh() vs without: losses {'bit-identical' if same_loss else 'DIFFER'} "
         f"({a['mesh']['losses'][0]:.6f} ... {a['mesh']['losses'][-1]:.6f}), parameters "
         f"{'bit-identical' if same_params else f'DIFFER in {len(differ)} tensors, worst {worst}'}; "
@@ -2467,6 +2505,7 @@ def _load_file(rel: str):
 
     spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3], rel)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -2824,6 +2863,415 @@ def drivers_phase(dev, card: str) -> None:
         f"{log_path})")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the reference-test-set adaptation scripts ("campaign")
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_OUT = os.path.join("chiprun_out", "campaign")
+SGNN_WEIGHTS = os.path.join("multimodalspectraltransformer_tpu", "sim", "weights_sgnn")
+
+
+def _plain(points) -> list:
+    """Peaks as Python floats (a list of numbers or of pairs)."""
+    return [float(p) if np.ndim(p) == 0 else [float(v) for v in p] for p in points]
+
+
+def write_reference_testset(out_dir: str, chc_records, h1_records) -> None:
+    """Records in the shipped test set's headerless format, a
+    ``SMILES,"[data]",sample-id`` row each, as ``load_reference_testset``
+    reads it: 13C, HSQC and COSY of ``chc_records``, 1H of ``h1_records``."""
+    import csv
+
+    from multimodalspectraltransformer_torch.data.pipeline import REF_TESTSET_FILES
+
+    os.makedirs(out_dir, exist_ok=True)
+    for key, attr, recs in (("13c", "c13", chc_records), ("hsqc", "hsqc", chc_records),
+                            ("cosy", "cosy", chc_records), ("1h", "h1", h1_records)):
+        with open(os.path.join(out_dir, REF_TESTSET_FILES[key]), "w", newline="") as f:
+            w = csv.writer(f)
+            for r in recs:
+                w.writerow([r.smiles, json.dumps(_plain(getattr(r, attr))), r.sample_id])
+
+
+def campaign_testset(dev, out_dir: str, n: int = 96, seed: int = 250) -> tuple[list, list]:
+    """A stand-in for the shipped test set, written to ``out_dir``: two
+    disjoint sets of ``n`` molecules of ``random_corpus(2n, min_mw=250,
+    max_mw=350)`` with ids of both halves of the split, simulated on ``dev``
+    by the committed shift weights with every parameter scaled by 1.1
+    ("another simulator"), no IR: 13C, HSQC and COSY of the first set, 1H of
+    the second. It measures nothing of the reference's data."""
+    import torch
+
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.sim import distill, factory
+
+    smiles = molrandom.random_corpus(2 * n, seed=seed, min_mw=250.0, max_mw=350.0)
+    if len(smiles) < 2 * n:
+        raise AssertionError(f"random_corpus gave {len(smiles)} of {2 * n} molecules")
+    other, stats = distill.load_shift_weights(distill.WEIGHTS_DIR, dev)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.mul_(1.1)
+    recs = factory.simulate_records(smiles, sample_ids=[f"ZINC{seed:04d}{i:08d}" for i in
+                                                        range(2 * n)],
+                                    shift_model=other, stats=stats, with_ir=False, device=dev)
+    if len(recs) != 2 * n:
+        raise AssertionError(f"{len(recs)} of {2 * n} stand-in molecules simulated")
+    chc, h1 = recs[:n], recs[n:]
+    write_reference_testset(out_dir, chc, h1)
+    return chc, h1
+
+
+def campaign_adapt(dev, card: str, ref_dir: str, log_path: str) -> str:
+    """(b): ``torch_sgnn_adapt`` on the stand-in, 300 steps at batch 128 on
+    the card; returns the adapted weights' directory."""
+    import torch
+
+    from multimodalspectraltransformer_torch.sim import distill
+
+    adapt = _load_file(os.path.join("scripts", "torch_sgnn_adapt.py"))
+    report_dir = os.path.join(CAMPAIGN_OUT, "sgnn_adapt")
+    weights = os.path.join(report_dir, "weights_sgnn")
+    fit = {}
+    real_train = distill.train_shift_model
+
+    def timed(data, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_train(data, **kw)
+        torch.cuda.synchronize()
+        fit.update(seconds=time.perf_counter() - t0, steps=kw["n_steps"], device=str(kw["device"]))
+        return out
+
+    distill.train_shift_model = timed
+    t0 = time.perf_counter()
+    try:
+        with _quiet(log_path):
+            rc = adapt.main(["--ref-dir", ref_dir, "--steps", "300", "--batch-size", "128",
+                             "--out", weights, "--report", report_dir])
+    finally:
+        distill.train_shift_model = real_train
+    secs = time.perf_counter() - t0
+    with open(os.path.join(report_dir, "report.json")) as f:
+        report = json.load(f)
+    info = report["assignment"]
+    before, after = report["eval_before"], report["eval_after"]
+    mae = [r["chc_eval"]["c13_nn_mae_ppm"] for r in (before, after)]
+    log(f"[campaign] (b) torch_sgnn_adapt: assignment dataset {info}; fine-tune 300 steps at "
+        f"batch 128 on {fit.get('device')}: {fit.get('seconds', float('nan')):.2f} s, "
+        f"{1e3 * fit.get('seconds', float('nan')) / 300:.3f} ms a step (validation included); "
+        f"eval half 13C nearest-peak MAE {mae[0]:.4f} -> {mae[1]:.4f} ppm, HSQC match "
+        f"{before['chc_eval']['hsqc_match_dist']:.4f} -> {after['chc_eval']['hsqc_match_dist']:.4f}, "
+        f"1H centroid MAE {before['h1_eval']['h1_centroid_nn_mae_ppm']:.4f} -> "
+        f"{after['h1_eval']['h1_centroid_nn_mae_ppm']:.4f} ppm; {secs:.2f} s in all; {card}")
+    if rc != 0 or torch.device(fit.get("device", "meta")).type != dev.type or info["mols"] <= 0:
+        raise AssertionError(f"torch_sgnn_adapt did not fine-tune on {dev}")
+    if not mae[1] < mae[0]:
+        raise AssertionError(f"the eval half's 13C MAE did not fall: {mae[0]} -> {mae[1]}")
+    if distill.load_shift_weights(weights, dev) is None:
+        raise AssertionError("the adapted weights do not load")
+    return weights
+
+
+def campaign_corpora(dev, card: str, ref_dir: str, weights: str, log_path: str) -> None:
+    """(c): the corpus chain on the card's outputs, each pickle's count and
+    ids checked, then ``cli train`` from the mixture with the simulator
+    refused."""
+    import tempfile
+
+    from multimodalspectraltransformer_torch import cli
+    from multimodalspectraltransformer_torch.chem import api as chem
+    from multimodalspectraltransformer_torch.data import molrandom
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.sim import factory
+
+    out = os.path.join(CAMPAIGN_OUT, "corpora")
+    os.makedirs(out)
+    chc, h1 = dp.load_reference_sets(ref_dir)
+    adapt_ids = [r.sample_id for r in chc if dp.ref_testset_split(r.sample_id) == "adapt"]
+    evals = {chem.canonicalize(r.smiles) for r in chc + h1
+             if dp.ref_testset_split(r.sample_id) == "eval"}
+    secs = {}
+
+    def run(name: str, argv: list) -> None:
+        t0 = time.perf_counter()
+        with _quiet(log_path):
+            rc = _load_file(os.path.join("scripts", name + ".py")).main(argv)
+        secs[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+
+    zc_txt, zc_pkl = os.path.join(out, "zinclike.txt"), os.path.join(out, "factory_zinc.pkl")
+    run("torch_zinc_corpus", ["--out", zc_txt, "--n", "256", "--ref-dir", ref_dir])
+    with open(zc_txt) as f:
+        zinc = f.read().split()
+    if len(zinc) != 256 or len(set(zinc)) != 256 or evals & set(zinc):
+        raise AssertionError(f"the zinclike corpus holds {len(zinc)} molecules, "
+                             f"{len(set(zinc))} distinct, {len(evals & set(zinc))} of the eval half")
+    run("torch_build_factory_cache", ["--corpus", zc_txt, "--n", "256", "--seed", "41", "--out",
+                                      zc_pkl, "--chunk", "128"])
+    zc = dp.load_records_pickle(zc_pkl)
+    if (zc["n"], zc["seed"]) != (256, 41) or not zc["records"] or any(
+            r.sample_id != f"f{zinc.index(r.smiles)}" for r in zc["records"]):
+        raise AssertionError("the zinclike factory cache does not hold the corpus it was given")
+    mem_pkl = os.path.join(out, "factory_adapt_mem.pkl")
+    run("torch_r4_mem_control", ["--out", mem_pkl, "--dup", "4", "--ref-dir", ref_dir])
+    mem = dp.load_records_pickle(mem_pkl)
+    if [r.sample_id for r in mem["records"]] != [f"{i}_m{d}" for d in range(4) for i in adapt_ids]:
+        raise AssertionError("the memorization cache's ids are not the adapt half 4 times")
+    mix_pkl = os.path.join(out, "factory_zc2.pkl")
+    run("torch_build_mixture_corpus", ["--zc", zc_pkl, "--mem", mem_pkl, "--dup", "8", "--out",
+                                       mix_pkl, "--key-seed", "777"])
+    mix = dp.load_records_pickle(mix_pkl)
+    want = sorted([r.sample_id for r in zc["records"]]
+                  + [f"{i}_x{d}" for d in range(8) for i in adapt_ids])
+    if mix["n"] != len(want) or sorted(r.sample_id for r in mix["records"]) != want:
+        raise AssertionError("the mixture does not hold the zinclike records and 8 of each unique")
+    corpus = os.path.join(out, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("\n".join(molrandom.random_corpus(512, seed=2424, min_mw=200.0, max_mw=400.0)) + "\n")
+    sgnn_pkl = os.path.join(out, "factory_sgnn.pkl")
+    sim = {"records": 0, "seconds": 0.0}
+    real_simulate = factory.simulate_records
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        recs = real_simulate(*a, **k)
+        sim["seconds"] += time.perf_counter() - t0
+        sim["records"] += len(recs)
+        return recs
+
+    factory.simulate_records = timed
+    try:
+        run("torch_build_sgnn_corpus", ["--corpus", corpus, "--orig-cache", zc_pkl, "--weights",
+                                        weights, "--out", sgnn_pkl, "--n", "256", "--real-dup", "2",
+                                        "--orig-frac", "0.25", "--chunk", "128", "--ref-dir", ref_dir])
+    finally:
+        factory.simulate_records = real_simulate
+    sg = dp.load_records_pickle(sgnn_pkl)
+    n_real = sum(dp.ref_testset_split(r.sample_id) == "adapt" for r in chc + h1)
+    ids = [r.sample_id for r in sg["records"]]
+    if (ids[:256] != [f"a{i}" for i in range(256)] or sg["n"] != 256 + 2 * n_real + 64
+            or any(r.ir is not None for r in sg["records"][:256])):
+        raise AssertionError(f"the SGNN corpus holds {sg['n']} records, not 256 simulated, "
+                             f"{2 * n_real} real and 64 anchors")
+
+    real_sim = factory.simulate_records
+
+    def refuse(*a, **k):
+        raise AssertionError("cli train simulated records despite --factory-cache")
+
+    factory.simulate_records = refuse
+    try:
+        t0 = time.perf_counter()
+        # the run's full-model files stay out of chiprun_out
+        with tempfile.TemporaryDirectory() as tmp, _quiet(log_path):
+            rc = cli.main(["train", "--factory", str(mix["n"]), "--factory-seed", "777",
+                           "--factory-cache", mix_pkl, "--steps", "2", "--batch-size", "16",
+                           "--bf16", "--out", tmp])
+        secs["cli train"] = time.perf_counter() - t0
+    finally:
+        factory.simulate_records = real_sim
+    with open(log_path) as f:
+        line = json.loads([ln for ln in f.read().splitlines() if ln.startswith('{"steps"')][-1])
+    if rc != 0 or line["steps"] != 2 or not np.isfinite(line["train_loss"]):
+        raise AssertionError("cli train did not take 2 steps on the mixture")
+    log(f"[campaign] (c) corpora: zinclike {len(zinc)} molecules, its cache {len(zc['records'])} "
+        f"records; memorization {mem['n']} ({len(adapt_ids)} adapt x 4); mixture {mix['n']}; SGNN "
+        f"corpus {sg['n']} (256 simulated by the adapted weights at "
+        f"{sim['records'] / sim['seconds']:.1f} mols/s on the card, {2 * n_real} real, 64 "
+        f"anchors); cli train from the mixture 2 bf16 steps, loss {line['train_loss']:.4f}, "
+        f"nothing simulated; seconds " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; {card}")
+
+
+def campaign_control(dev, card: str, ref_dir: str, weights: str, log_path: str) -> None:
+    """(d): ``torch_control_adapted_sim_eval`` on 8 molecules of the adapt
+    half with the adapted weights, the K1 and K2 launches counted."""
+    from multimodalspectraltransformer_torch.eval import harness
+    from multimodalspectraltransformer_torch.sim import distill
+
+    control = _load_file(os.path.join("scripts", "torch_control_adapted_sim_eval.py"))
+    out = os.path.join(CAMPAIGN_OUT, "control_adapted_sim_adapt.json")
+    seen = []
+    real_evaluate = harness.evaluate_molecules
+
+    def spy(*a, **k):
+        t0 = time.perf_counter()
+        res = real_evaluate(*a, **k)
+        seen.append((k["sim_kwargs"], res, time.perf_counter() - t0))
+        return res
+
+    harness.evaluate_molecules = spy
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with _quiet(log_path):
+            rc = control.main(["--params", PHASE3, "--n", "8", "--chunk-size", "8", "--sim-weights",
+                               weights, "--ref-dir", ref_dir, "--out", out])
+    finally:
+        harness.evaluate_molecules = real_evaluate
+    secs = time.perf_counter() - t0
+    launches = _launch_counts()
+    with open(out) as f:
+        summary = json.load(f)
+    adapted, _ = distill.load_shift_weights(weights, dev)
+    errs = [e for _, (results, _), _ in seen for r in results for c in r.candidates
+            for e in (c.hsqc_error, c.cosy_error) if not np.isnan(e)]
+    eval_s = sum(s for _, _, s in seen)
+    log(f"[campaign] (d) torch_control_adapted_sim_eval: {summary['n']} adapt-half molecules "
+        f"simulated and scored by the adapted weights, fan-out 128, 10 rounds, bf16: launches "
+        f"K1={launches['K1']} K2={launches['K2']} K3={launches['K3']}; evaluate "
+        f"{summary['n'] / eval_s:.3f} mols/s ({eval_s:.2f} s), the script {secs:.2f} s; greedy "
+        f"{summary['greedy_exact']:.4f}, MNS {summary['mns_exact']:.4f}; {len(errs)} scored "
+        f"errors, all finite: {bool(np.isfinite(errs).all())}; {card}")
+    if rc != 0 or summary["n"] != 8 or launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"the control evaluated {summary['n']} molecules, launches {launches}")
+    if not errs or not np.isfinite(errs).all():
+        raise AssertionError("the control scored no pair, or a pair's error is not finite")
+    if not all(_same_weights(sim["shift_model"], adapted) for sim, _, _ in seen):
+        raise AssertionError("the harness did not get the adapted weights of --sim-weights")
+
+
+def campaign_real_data(dev, card: str, chc: list, log_path: str) -> None:
+    """(e): ``torch_real_data_demo`` on 5 records of the stand-in in the AZ
+    format, cut: every fold's frozen tensors bit-equal to phase3."""
+    import torch
+
+    from multimodalspectraltransformer_torch.models import convert
+    from multimodalspectraltransformer_torch.train import checkpoint as ckpt
+    from multimodalspectraltransformer_torch.train.state import trainable_parameters
+    from multimodalspectraltransformer_torch.utils.config import ModelConfig, TrainConfig
+
+    demo = _load_file(os.path.join("scripts", "torch_real_data_demo.py"))
+    az = os.path.join(CAMPAIGN_OUT, "az")
+    write_az_example(az, chc[:5])
+    phase3 = ckpt.import_params_msgpack(PHASE3)
+    folds = []
+    real_fold, real_evaluate = demo.train_fold, demo.evaluate
+
+    def checked_fold(params, records, held, mcfg, trainable, steps, lr, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real_fold(params, records, held, mcfg, trainable, steps, lr, **kw)
+        torch.cuda.synchronize()
+        model = result.state.model
+        picked = {id(p) for p in trainable_parameters(TrainConfig(trainable_only=trainable), model)}
+        frozen_equal = moved = 0
+        for name, p in model.named_parameters():
+            same = torch.equal(p.detach().cpu(), phase3[name])
+            if id(p) in picked:
+                moved += not same
+            else:
+                frozen_equal += same
+                if not same:
+                    raise AssertionError(f"fold {held} ({trainable}) moved frozen tensor {name}")
+        paths = convert.jax_paths(dict(model.named_parameters()))
+        tops = sorted({paths[n].split("/")[0] for n, p in model.named_parameters()
+                       if id(p) in picked})
+        folds.append(dict(trainable=trainable, held=held, seconds=time.perf_counter() - t0,
+                          frozen_equal=frozen_equal, moved=moved, n_picked=len(picked), tops=tops))
+        return result
+
+    blend = {"launches": 0, "calls": 0}
+
+    def counted_evaluate(records, model, dcfg, **kw):
+        before = _launch_counts()["K1"]
+        out = real_evaluate(records, model, dcfg, **kw)
+        if model.cfg.use_real_data:
+            blend["launches"] += _launch_counts()["K1"] - before
+            blend["calls"] += 1
+        return out
+
+    demo.train_fold, demo.evaluate = checked_fold, counted_evaluate
+    t0 = time.perf_counter()
+    with _quiet(log_path):
+        out = demo.run(demo.parse_args(
+            ["--params", PHASE3, "--dir", az, "--steps", "10", "--steps2", "20", "--fanout", "16",
+             "--rounds", "2", "--out", os.path.join(CAMPAIGN_OUT, "real_data_demo")]), ModelConfig())
+    secs = time.perf_counter() - t0
+    arm1 = [f for f in folds if f["trainable"] == ("real_data_linear",)]
+    arm2 = [f for f in folds if f["trainable"] != ("real_data_linear",)]
+    log(f"[campaign] (e) torch_real_data_demo, 5 stand-in records in the AZ format, full width "
+        f"from phase3, bf16, 10 + 20 steps a fold, fan-out 16, 2 rounds: arm 1 folds "
+        f"{[round(f['seconds'], 2) for f in arm1]} s, {arm1[0]['frozen_equal']} of "
+        f"{arm1[0]['frozen_equal'] + arm1[0]['n_picked']} tensors bit-equal to phase3 (all but "
+        f"{arm1[0]['tops']}); arm 2 folds "
+        f"{[round(f['seconds'], 2) for f in arm2]} s, moved only {arm2[0]['tops']} "
+        f"({arm2[0]['moved']} of {arm2[0]['n_picked']} tensors moved, {arm2[0]['frozen_equal']} "
+        f"frozen bit-equal); K1 launches under the blend {blend['launches']} in "
+        f"{blend['calls']} evaluations; measured sigma 13C "
+        f"{out['real_data_decoder']['sigma_13c_ppm']:.3f} / 1H "
+        f"{out['real_data_decoder']['sigma_1h_ppm']:.4f} ppm; {secs:.2f} s in all; {card}")
+    if len(arm1) != 5 or len(arm2) != 5 or blend["calls"] != 10 or blend["launches"] <= 0:
+        raise AssertionError(f"{len(arm1)} + {len(arm2)} folds, {blend} through the blend")
+    if any(f["tops"] != ["real_data_linear"] or f["moved"] != f["n_picked"] for f in arm1):
+        raise AssertionError("an arm-1 fold trained more than real_data_linear, or not all of it")
+    if any(f["tops"] != ["decoder", "fc_out", "real_data_linear"] or f["moved"] == 0 for f in arm2):
+        raise AssertionError("an arm-2 fold trained other tensors than decoder, fc_out and "
+                             "real_data_linear")
+
+
+def campaign_host_tools(card: str, ref_dir: str, log_path: str) -> None:
+    """(f): ``torch_chemotype_stats`` and ``torch_make_r3_corpus`` (slabs cut)
+    on this machine, which has no JAX."""
+    stats = _load_file(os.path.join("scripts", "torch_chemotype_stats.py"))
+    r3 = _load_file(os.path.join("scripts", "torch_make_r3_corpus.py"))
+    r3.SLABS = ((2000, 21, 80.0, 550.0), (500, 31, 80.0, 250.0), (500, 32, 250.0, 350.0))
+    out = os.path.join(CAMPAIGN_OUT, "corpora")
+    r3_txt = os.path.join(out, "corpus_r3_cut.txt")
+    t0 = time.perf_counter()
+    with _quiet(log_path):
+        rc_r3 = r3.main(["--out", r3_txt])
+    t1 = time.perf_counter()
+    with open(r3_txt) as f:
+        n_r3 = len(f.read().split())
+    with _quiet(log_path):
+        rc_stats = stats.main(["--corpus", r3_txt, "--sample", "1000", "--extra",
+                               os.path.join(out, "zinclike.txt"), "--ref-dir", ref_dir])
+    t2 = time.perf_counter()
+    log(f"[campaign] (f) torch_make_r3_corpus with slabs of 2000/500/500: {n_r3} molecules in "
+        f"{t1 - t0:.2f} s; torch_chemotype_stats on it and the zinclike corpus: {t2 - t1:.2f} s "
+        f"(the table in {log_path}); {card}")
+    if rc_r3 != 0 or rc_stats != 0 or not 2000 < n_r3 <= 3000:
+        raise AssertionError("the host tools failed")
+
+
+def campaign_phase(dev, card: str) -> None:
+    """Phase 12 (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.sim import distill
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CAMPAIGN_OUT, ignore_errors=True)
+    os.makedirs(CAMPAIGN_OUT)
+    log_path = os.path.join(CAMPAIGN_OUT, "campaign.log")
+    committed = {d: sha256_files(d) for d in (distill.WEIGHTS_DIR, SGNN_WEIGHTS)}
+    ref_dir = os.path.join(CAMPAIGN_OUT, "ref")
+    t0 = time.perf_counter()
+    chc, h1 = campaign_testset(dev, ref_dir)
+    halves = [sum(dp.ref_testset_split(r.sample_id) == "adapt" for r in recs) for recs in (chc, h1)]
+    log(f"[campaign] (a) a stand-in for the shipped test set, NOT the reference's data (no "
+        f"figure of this phase measures accuracy on it): {len(chc)} molecules with 13C/HSQC/COSY "
+        f"and {len(h1)} with 1H from random_corpus(192, 250-350 Da), simulated on the card by "
+        f"the committed shift weights scaled by 1.1, in {time.perf_counter() - t0:.2f} s; adapt "
+        f"halves {halves[0]} and {halves[1]}")
+    weights = campaign_adapt(dev, card, ref_dir, log_path)
+    campaign_corpora(dev, card, ref_dir, weights, log_path)
+    torch.cuda.empty_cache()
+    campaign_control(dev, card, ref_dir, weights, log_path)
+    campaign_real_data(dev, card, chc, log_path)
+    campaign_host_tools(card, ref_dir, log_path)
+    if {d: sha256_files(d) for d in committed} != committed:
+        raise AssertionError("the phase changed the committed simulator weights")
+    log(f"[campaign] the phase took {time.perf_counter() - t_phase:.1f} s (the scripts' own "
+        f"output: {log_path})")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -2885,6 +3333,8 @@ def main() -> int:
     parallel_phase(dev, card, phase6_records, (records, model, dcfg))
     torch.cuda.empty_cache()
     drivers_phase(dev, card)
+    torch.cuda.empty_cache()
+    campaign_phase(dev, card)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

@@ -222,6 +222,26 @@ def load_reference_testset(
     return records
 
 
+# the reference's shipped test CSVs (its ``MMT_website/Runfolder/CSV_files/``)
+# and where they are looked for by default: that directory in this repository
+REF_TESTSET_FILES = {"13c": "ML_NMR_5M_XL_13C_test_10x100.csv",
+                     "hsqc": "ML_NMR_5M_XL_HSQC_test_10x100.csv",
+                     "cosy": "ML_NMR_5M_XL_COSY_test_10x100.csv",
+                     "1h": "ML_NMR_1H_combined_ZINC_test_10x100.csv"}
+REF_TESTSET_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "MMT_website", "Runfolder", "CSV_files")
+
+
+def load_reference_sets(ref_dir: str) -> tuple[list[SampleRecord], list[SampleRecord]]:
+    """The two shipped test sets in ``ref_dir``: the records of the
+    13C/HSQC/COSY files and those of the 1H file (other molecules)."""
+    chc = load_reference_testset(**{f"csv_{m}": os.path.join(ref_dir, REF_TESTSET_FILES[m])
+                                    for m in ("13c", "hsqc", "cosy")})
+    h1 = load_reference_testset(csv_1h=os.path.join(ref_dir, REF_TESTSET_FILES["1h"]))
+    return chc, h1
+
+
 def load_real_example(dir_path: str, use_ir: bool = True, limit: int = 0) -> list[SampleRecord]:
     """Experimental spectra in the AZ example format (the input of the
     reference's /run_model_exp_data route): semicolon-separated

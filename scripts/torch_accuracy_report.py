@@ -70,9 +70,6 @@ REF_BANDS = {
     (250, 350): {"mns": 0.483, "greedy": 0.228},
     (350, 500): {"mns": 0.166, "greedy": 0.046},
 }
-REF_FILES = {"13c": "ML_NMR_5M_XL_13C_test_10x100.csv", "hsqc": "ML_NMR_5M_XL_HSQC_test_10x100.csv",
-             "cosy": "ML_NMR_5M_XL_COSY_test_10x100.csv",
-             "1h": "ML_NMR_1H_combined_ZINC_test_10x100.csv"}
 
 
 def parse_args(argv=None):
@@ -149,7 +146,7 @@ def reference_records(args) -> list:
     mods = {m.strip() for m in args.ref_modalities.lower().split(",") if m.strip()}
     recs = dp.load_reference_testset(
         **{f"csv_{m}": os.path.join(args.ref_testset, name) if m in mods else ""
-           for m, name in REF_FILES.items()},
+           for m, name in dp.REF_TESTSET_FILES.items()},
         limit=0 if args.ref_split != "all" else args.n)
     if args.ref_split != "all":
         recs = [r for r in recs if dp.ref_testset_split(r.sample_id) == args.ref_split]

@@ -529,3 +529,101 @@ def test_accuracy_report_with_beam_launches_k3(cuda_device, tmp_path):
     assert {k: v for k, v in again.items() if k not in drop} == {
         k: v for k, v in first.items() if k not in drop}
     assert json.load(open(tmp_path / "ACCURACY_gpu.json"))["n"] == 4
+
+
+def _script(name: str):
+    import importlib.util
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_sgnn_adapt_on_gpu_matches_cpu(cuda_device, tmp_path):
+    """``torch_sgnn_adapt``'s GNN predictions on the card within 1e-4 ppm of
+    the CPU's on a stand-in for the shipped test set; its fine-tune on the
+    card lowers the eval half's 13C MAE."""
+    import json
+
+    import chip_smoke
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.sim import factory
+
+    adapt = _script("torch_sgnn_adapt")
+    chip_smoke.campaign_testset("cpu", str(tmp_path / "ref"), n=16)
+    chc, h1 = dp.load_reference_sets(str(tmp_path / "ref"))
+    on_card = adapt.predict_all(chc + h1, *factory.default_shift_model(cuda_device), cuda_device)
+    on_cpu = adapt.predict_all(chc + h1, *factory.default_shift_model("cpu"), "cpu")
+    assert [r[0].sample_id for r in on_card] == [r[0].sample_id for r in on_cpu] and on_cpu
+    for (_, _, sc, sh), (_, _, rc, rh) in zip(on_card, on_cpu):
+        np.testing.assert_allclose(sc, rc, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(sh, rh, rtol=0, atol=1e-4)
+    assert adapt.main(["--ref-dir", str(tmp_path / "ref"), "--steps", "40", "--batch-size", "32",
+                       "--out", str(tmp_path / "w"), "--report", str(tmp_path / "r")]) == 0
+    report = json.load(open(tmp_path / "r" / "report.json"))
+    assert (report["eval_after"]["chc_eval"]["c13_nn_mae_ppm"]
+            < report["eval_before"]["chc_eval"]["c13_nn_mae_ppm"])
+
+
+@pytest.mark.gpu
+def test_control_adapted_sim_eval_on_gpu_launches_k1_k2(cuda_device, tmp_path):
+    """``torch_control_adapted_sim_eval`` at full width with phase3 on 2
+    stand-in molecules, the committed SGNN-adapted weights simulating and
+    scoring: the decodes go through K1, the scorer through K2."""
+    import json
+    import os
+
+    import chip_smoke
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    chip_smoke.campaign_testset(cuda_device, str(tmp_path / "ref"), n=8)
+    for mod in (tk1, tk2):
+        mod.reset_launches()
+    assert _script("torch_control_adapted_sim_eval").main(
+        ["--params", os.path.join(repo, "weights", "mmt_r4_phase3.msgpack.gz"), "--n", "2",
+         "--chunk-size", "2", "--ref-dir", str(tmp_path / "ref"), "--out",
+         str(tmp_path / "control.json"), "--sim-weights",
+         os.path.join(repo, "multimodalspectraltransformer_tpu", "sim", "weights_sgnn")]) == 0
+    assert tk1.launches > 0 and tk2.launches > 0
+    assert json.load(open(tmp_path / "control.json"))["n"] == 2
+
+
+@pytest.mark.gpu
+def test_real_data_fold_on_gpu_trains_only_its_subtrees(cuda_device, tmp_path):
+    """A fold of ``torch_real_data_demo``'s arm 2 at full width from phase3 in
+    bf16 on the card, 3 steps: ``decoder``, ``fc_out`` and
+    ``real_data_linear`` move; every other tensor stays bit-equal."""
+    import dataclasses
+    import os
+
+    import chip_smoke
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.models.convert import jax_paths
+    from multimodalspectraltransformer_torch.sim import factory
+    from multimodalspectraltransformer_torch.train import checkpoint
+    from multimodalspectraltransformer_torch.utils.config import ModelConfig
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    recs = factory.simulate_records(["CCOC(=O)c1ccccc1", "CC(C)Cc1ccc(C(C)C(=O)O)cc1",
+                                     "O=C(O)c1ccccc1O", "CCN(CC)CC(=O)Nc1c(C)cccc1C",
+                                     "COc1ccc(CC(C)N)cc1"], device=cuda_device)
+    chip_smoke.write_az_example(str(tmp_path / "az"), recs)
+    phase3 = checkpoint.import_params_msgpack(os.path.join(repo, "weights",
+                                                           "mmt_r4_phase3.msgpack.gz"))
+    cfg = dataclasses.replace(ModelConfig(), use_real_data=True)
+    result = _script("torch_real_data_demo").train_fold(
+        phase3, dp.load_real_example(str(tmp_path / "az")), 0, cfg,
+        ("decoder", "fc_out", "real_data_linear"), 3, 5e-5, device=cuda_device,
+        jitter_13c_ppm=3.0, jitter_1h_ppm=0.2, jitter_gate_p=0.5, warp_13c_ppm=3.0,
+        warp_1h_ppm=0.2)
+    named = dict(result.state.model.named_parameters())
+    paths = jax_paths(named)
+    moved = {paths[n].split("/")[0] for n, p in named.items()
+             if not torch.equal(p.detach().cpu(), phase3[n])}
+    assert result.steps == 3 and moved == {"decoder", "fc_out", "real_data_linear"}

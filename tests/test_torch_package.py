@@ -53,10 +53,14 @@ PORT_MODULES = [
 DRIVER_SCRIPTS = ("torch_accuracy_report", "torch_eval_sweep", "torch_build_factory_cache",
                   "torch_regen_heldout_csv", "torch_prewarm_featcache",
                   "torch_prewarm_clip_featcache", "torch_average_checkpoints", "torch_export_latest")
+CAMPAIGN_SCRIPTS = ("torch_sgnn_adapt", "torch_build_sgnn_corpus", "torch_control_adapted_sim_eval",
+                    "torch_real_data_demo", "torch_r4_mem_control", "torch_zinc_corpus",
+                    "torch_build_mixture_corpus", "torch_chemotype_stats", "torch_make_r3_corpus")
 EXAMPLES = ("torch_01_data_generation", "torch_02_train_and_evaluate", "torch_03_explainability",
             "torch_04_improvement_cycle")
 PORT_SCRIPTS = [os.path.join(REPO, "scripts", n + ".py") for n in (
-    *DRIVER_SCRIPTS, "torch_train_sim_models", "torch_heldout_precision")]
+    *DRIVER_SCRIPTS, *CAMPAIGN_SCRIPTS, "torch_train_sim_models", "torch_heldout_precision",
+    "torch_train_determinism")]
 PORT_SCRIPTS += [os.path.join(REPO, "examples", n + ".py") for n in EXAMPLES]
 PORT_SCRIPTS.append(os.path.join(REPO, "chip_smoke.py"))
 
@@ -78,7 +82,8 @@ import importlib, importlib.util
 for m in sys.argv[1:]:
     if m.endswith(".py"):  # a script, loaded as a module without running its main
         spec = importlib.util.spec_from_file_location("_script", m)
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        mod = sys.modules["_script"] = importlib.util.module_from_spec(spec)  # for dataclasses
+        spec.loader.exec_module(mod)
     else:
         importlib.import_module(m)
 bad = sorted(n for n in sys.modules
@@ -194,6 +199,16 @@ ENTRY_POINTS = {
     "average_checkpoints": lambda: load("scripts/torch_average_checkpoints.py").main(
         ["--ckpt-dir", "never-read", "--out", "never-written"]),
     "export_latest": lambda: load("scripts/torch_export_latest.py").main(["never-read", "never-written"]),
+    "sgnn_adapt": lambda: load("scripts/torch_sgnn_adapt.py").main(
+        ["--ref-dir", "never-read", "--out", "never-written", "--report", "never-written"]),
+    "build_sgnn_corpus": lambda: load("scripts/torch_build_sgnn_corpus.py").main(
+        ["--ref-dir", "never-read", "--out", "never-written"]),
+    "control_adapted_sim_eval": lambda: load("scripts/torch_control_adapted_sim_eval.py").main(
+        ["--params", "never-read", "--ref-dir", "never-read", "--out", "never-written"]),
+    "real_data_demo": lambda: load("scripts/torch_real_data_demo.py").main(
+        ["--params", "never-read", "--dir", "never-read", "--out", "never-written"]),
+    "train_determinism": lambda: load("scripts/torch_train_determinism.py").main(
+        ["--reps", "1", "--det-reps", "0", "--out", "never-written"]),
     "example_01": lambda: load("examples/torch_01_data_generation.py").main("never-written"),
     "example_02": lambda: load("examples/torch_02_train_and_evaluate.py").main(),
     "example_03": lambda: load("examples/torch_03_explainability.py").main("never-written.svg"),

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import importlib.util
 import os
+import shutil
+import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PINNED = os.path.join(REPO, "runs", "accuracy_r3", "heldout_smiles.json")
@@ -17,6 +19,21 @@ def load(rel: str):
     spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3],
                                                   os.path.join(REPO, rel))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_copy(rel: str, dest: str):
+    """A script of the repository copied into ``dest/scripts/`` and loaded
+    from there, so that the paths it derives from its own location (its
+    repository root, its default outputs) point into ``dest``."""
+    os.makedirs(os.path.join(dest, "scripts"), exist_ok=True)
+    target = os.path.join(dest, "scripts", os.path.basename(rel))
+    shutil.copy(os.path.join(REPO, rel), target)
+    spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3] + "_copy", target)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -55,3 +72,25 @@ def decoding_params(records: list, taught: dict, path: str, steps: int = 40) -> 
         opt.step()
     checkpoint.export_params_msgpack(model, path)
     return path
+
+
+def injected_evaluate(harness_mod, seen: list):
+    """A stand-in for ``harness_mod.evaluate_molecules`` (either package's
+    harness): it appends (the records, the ``sim_kwargs``) of each call to
+    ``seen`` and returns results fixed by each record's id, in
+    ``harness_mod``'s own classes, with ``harness_mod.summarize``'s summary."""
+    import hashlib
+
+    def fake(records, *args, **kwargs):
+        seen.append((list(records), kwargs.get("sim_kwargs")))
+        results = []
+        for r in records:
+            h = int(hashlib.sha1(r.sample_id.encode()).hexdigest(), 16)
+            cands = [harness_mod.CandidateResult(r.smiles if h % 3 == 0 else "CCO",
+                                                 tanimoto=(h % 7) / 7.0, exact=h % 3 == 0),
+                     harness_mod.CandidateResult("CCN", tanimoto=(h % 5) / 9.0)]
+            results.append(harness_mod.MoleculeResult(target=r.smiles, greedy="CCO",
+                                                      greedy_exact=h % 2 == 0,
+                                                      candidates=cands))
+        return results, harness_mod.summarize(results)
+    return fake
