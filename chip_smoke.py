@@ -170,7 +170,19 @@ Phases, one line of output each (or a few):
              folds' seconds; (f) ``torch_chemotype_stats`` and
              ``torch_make_r3_corpus`` (slabs cut to 2000/500/500) on this
              machine; the committed simulator weights unchanged; the phase's
-             seconds.
+             seconds;
+13. bench  - the headline bench and the utilization report, each in a
+             process of its own, their output under ``chiprun_out/bench/``:
+             ``python3 bench_torch.py`` at its defaults (e2e: 48 molecules,
+             phase3, clip_r4) and with ``BENCH_MODE=beam`` (128 molecules x
+             beam 5 x 128 steps), ``cli bench --batch 16`` in beam mode, and
+             ``scripts/torch_roofline_report.py``. Each bench's stdout is
+             exactly one JSON line with bench.py's keys, unit mols/sec/chip
+             and ``value`` the molecules over the best rep it printed on
+             stderr; every e2e rep launched K1 and K2, every beam call K3 768
+             times (128 steps x 6 layers); the report's shares of the bf16 and
+             HBM peaks lie in (0, 1.05]. The lines, reps, stage seconds,
+             launches, peak memory and the phase's seconds.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -3272,6 +3284,102 @@ def campaign_phase(dev, card: str) -> None:
         f"output: {log_path})")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the headline bench and the roofline report ("bench")
+# ---------------------------------------------------------------------------
+
+BENCH_OUT = os.path.join("chiprun_out", "bench")
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_LAUNCHES_K3 = 128 * 6  # a beam call: 128 steps x 6 decoder layers
+DETAIL = "[bench] detail "
+
+
+def _bench_run(cmd: list, env_extra: dict, log_path: str, keys: list) -> tuple[dict, dict]:
+    """``cmd`` in a subprocess, with no BENCH_* variable of this process and
+    ``env_extra``; checks that its stdout is exactly one JSON line with
+    ``keys``, ``unit`` mols/sec/chip and ``value`` the molecules over the
+    best rep of its stderr; returns the line and the bench's detail."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run(cmd, env={**env, **env_extra}, capture_output=True, text=True,
+                          timeout=900)
+    with open(log_path, "a") as f:
+        f.write(f"$ {' '.join(f'{k}={v}' for k, v in env_extra.items())} {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}\n")
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"{' '.join(cmd)} printed {len(lines)} lines on stdout: {proc.stdout}")
+    line = json.loads(lines[0])
+    detail = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith(DETAIL)][-1]
+                        [len(DETAIL):])
+    n, best = detail["n"], min(detail["reps_s"])
+    if list(line) != keys or line["unit"] != "mols/sec/chip" or line["value"] != round(n / best, 3):
+        raise AssertionError(f"the line {line} is not bench.py's, or not {n} molecules over "
+                             f"{best!r} s")
+    return line, detail
+
+
+def _bench_log(label: str, line: dict, detail: dict) -> None:
+    stages = " ".join(f"{k}={v:.3f}" for k, v in detail["stage_seconds"].items())
+    reps = ", ".join(f"{t:.4f}" for t in detail["reps_s"])
+    launches = "; ".join(" ".join(f"{k}={v}" for k, v in c.items()) for c in detail["launches"])
+    log(f"[bench] {label}: {json.dumps(line)}")
+    log(f"[bench] {label}: reps {reps} s; best rep's stage seconds: {stages}; launches a rep: "
+        f"{launches}; max_memory_allocated {detail['max_memory_allocated'] / 2**30:.3f} GiB")
+
+
+def bench_phase(card: str) -> None:
+    """Phase 13 (see the module docstring)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    os.makedirs(BENCH_OUT)
+    log_path = os.path.join(BENCH_OUT, "bench.log")
+    py = sys.executable
+
+    line, detail = _bench_run([py, "bench_torch.py"], {}, log_path,
+                              BENCH_KEYS + ["mols_per_sec_mean"])
+    _bench_log("e2e", line, detail)
+    if (detail["n"] != 48 or "mmt_r4_phase3" not in line["metric"]
+            or "trained CLIP" not in line["metric"]):
+        raise AssertionError("the e2e bench did not run 48 molecules with phase3 and clip_r4")
+    if not all(c["K1"] > 0 and c["K2"] > 0 for c in detail["launches"]):
+        raise AssertionError(f"an e2e rep launched K1 or K2 no time: {detail['launches']}")
+
+    for label, cmd, n in (
+            ("beam", [py, "bench_torch.py"], 128),
+            ("cli bench --batch 16", [py, "-m", "multimodalspectraltransformer_torch.cli", "bench",
+                                      "--batch", "16"], 16)):
+        line, detail = _bench_run(cmd, {"BENCH_MODE": "beam"}, log_path, BENCH_KEYS)
+        _bench_log(label, line, detail)
+        if detail["n"] != n or any(c["K3"] != BENCH_LAUNCHES_K3 for c in detail["launches"]):
+            raise AssertionError(f"{label}: {detail['n']} molecules, K3 launches "
+                                 f"{[c['K3'] for c in detail['launches']]} (want {n}, "
+                                 f"{BENCH_LAUNCHES_K3} a call)")
+
+    proc = subprocess.run([py, os.path.join("scripts", "torch_roofline_report.py")],
+                          capture_output=True, text=True, timeout=900)
+    with open(log_path, "a") as f:
+        f.write(f"$ scripts/torch_roofline_report.py\n{proc.stderr}{proc.stdout}\n")
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_roofline_report.py exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    for row in ("train_step", "mns_decode"):
+        r = report[row]
+        shares = (r["flops"] / r["wall_s"] / BF16_FLOPS,
+                  r["hbm_bytes"] / r["wall_s"] / HBM_BYTES_PER_S)
+        if not all(0 < x <= 1.05 for x in shares):
+            raise AssertionError(f"roofline {row}: shares {shares} outside (0, 1.05]")
+        log(f"[bench] roofline {row}: {json.dumps(r)}")
+    for sentence in report["sentences"]:
+        log(f"[bench] roofline: {sentence} ({report['card']})")
+    log(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s (the benches' own output: "
+        f"{log_path})")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -3335,6 +3443,8 @@ def main() -> int:
     drivers_phase(dev, card)
     torch.cuda.empty_cache()
     campaign_phase(dev, card)
+    torch.cuda.empty_cache()  # the benches run in processes of their own on this card
+    bench_phase(card)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 

@@ -7,6 +7,7 @@ Subcommands:
   train-clip train the CLIP/BLIP contrastive ranking tower against a frozen MMT
   evaluate  run the full evaluation harness, print a metrics JSON
   improve   run the self-improvement fine-tuning cycle
+  bench     the headline benchmark (bench_torch.py at the repo root): one JSON line
   serve     run the web serving console (job queue + SSE, port 8083)
   vectorize build a Morgan fingerprint vector DB, optionally query it
 
@@ -17,6 +18,7 @@ Examples:
   python -m multimodalspectraltransformer_torch.cli evaluate --factory 32 \\
       --params weights/mmt_r4_phase3.msgpack.gz
   python -m multimodalspectraltransformer_torch.cli serve --params weights/mmt_r4_phase3.msgpack.gz
+  BENCH_MODE=beam python -m multimodalspectraltransformer_torch.cli bench --batch 128 --beam 5
   python -m multimodalspectraltransformer_torch.cli train-clip --factory 1024 --eval-n 64 \
       --batch-size 256 --lr 1e-4 --params weights/mmt_r4_phase3.msgpack.gz --out clip_run/
   python -m multimodalspectraltransformer_torch.cli vectorize --smiles mols.txt --out db --csv \
@@ -370,6 +372,17 @@ def cmd_train_clip(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    # explicit flags win over any stale BENCH_* exports in the shell
+    os.environ["BENCH_BATCH"] = str(args.batch)
+    os.environ["BENCH_BEAM"] = str(args.beam)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench_torch
+
+    bench_torch.main(device=args.device)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from .serve import ServerState, serve
 
@@ -529,6 +542,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="featurized-dataset disk cache directory (MMT_FEATURE_CACHE; else a "
                          "<factory-cache>.featcache sidecar file names it)")
     sp.set_defaults(fn=cmd_train_clip)
+
+    sp = sub.add_parser("bench", help="throughput benchmark (bench_torch.py)")
+    add_device(sp)
+    sp.add_argument("--batch", type=int, default=128)
+    sp.add_argument("--beam", type=int, default=5)
+    sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("serve", help="web serving console (port 8083)")
     add_device(sp)

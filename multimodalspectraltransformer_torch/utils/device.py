@@ -20,3 +20,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     return dev
 
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (every number measured
+    on the card stands beside this line), or the device's type off the card."""
+    import subprocess
+
+    if device.type != "cuda":
+        return f"{device.type} (no card)"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+        return out.stdout.strip().splitlines()[device.index or 0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"{torch.cuda.get_device_name(device)} (nvidia-smi failed: {e})"

@@ -627,3 +627,23 @@ def test_real_data_fold_on_gpu_trains_only_its_subtrees(cuda_device, tmp_path):
     moved = {paths[n].split("/")[0] for n, p in named.items()
              if not torch.equal(p.detach().cpu(), phase3[n])}
     assert result.steps == 3 and moved == {"decoder", "fc_out", "real_data_linear"}
+
+
+@pytest.mark.gpu
+def test_bench_e2e_on_gpu_prints_its_line_and_launches_k1_k2(cuda_device, capfd):
+    """``bench_torch.py``'s e2e mode on the card at 4 molecules, 1 rep (phase3,
+    clip_r4): one JSON line on stdout with bench.py's keys, its value
+    molecules over the printed rep, and K1 and K2 launched in the rep."""
+    import json
+
+    import bench_torch
+
+    line = bench_torch.main_e2e(cuda_device, n_mols=4, reps=1)
+    out, err = capfd.readouterr()
+    assert out.splitlines() == [json.dumps(line)]
+    assert list(line) == ["metric", "value", "unit", "vs_baseline", "mols_per_sec_mean"]
+    detail = json.loads([ln for ln in err.splitlines()
+                         if ln.startswith("[bench] detail ")][0][len("[bench] detail "):])
+    assert line["unit"] == "mols/sec/chip" and line["value"] == round(4 / detail["reps_s"][0], 3)
+    assert detail["launches"][0]["K1"] > 0 and detail["launches"][0]["K2"] > 0
+    assert detail["max_memory_allocated"] > 0

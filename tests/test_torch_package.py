@@ -60,9 +60,9 @@ EXAMPLES = ("torch_01_data_generation", "torch_02_train_and_evaluate", "torch_03
             "torch_04_improvement_cycle")
 PORT_SCRIPTS = [os.path.join(REPO, "scripts", n + ".py") for n in (
     *DRIVER_SCRIPTS, *CAMPAIGN_SCRIPTS, "torch_train_sim_models", "torch_heldout_precision",
-    "torch_train_determinism")]
+    "torch_train_determinism", "torch_roofline", "torch_roofline_report")]
 PORT_SCRIPTS += [os.path.join(REPO, "examples", n + ".py") for n in EXAMPLES]
-PORT_SCRIPTS.append(os.path.join(REPO, "chip_smoke.py"))
+PORT_SCRIPTS += [os.path.join(REPO, n) for n in ("chip_smoke.py", "bench_torch.py")]
 
 _BLOCKED_IMPORT = r"""
 import importlib.abc, sys
@@ -121,6 +121,17 @@ def test_port_sources_never_name_jax_imports():
     assert not offenders, offenders
 
 
+def _env_kept(fn):
+    """``fn()`` with ``os.environ`` restored after it (``cli bench`` writes
+    BENCH_BATCH and BENCH_BEAM before it raises)."""
+    saved = dict(os.environ)
+    try:
+        return fn()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -160,6 +171,10 @@ ENTRY_POINTS = {
     "cli_improve": lambda: cli.main(["improve", "--smiles", "never-read.txt",
                                      "--out", "never-written"]),
     "cli_serve": lambda: cli.main(["serve"]),
+    "cli_bench": lambda: _env_kept(lambda: cli.main(["bench"])),
+    "bench_e2e": lambda: load("bench_torch.py").main_e2e(),
+    "bench_beam": lambda: load("bench_torch.py").main_beam(),
+    "roofline_report": lambda: load("scripts/torch_roofline_report.py").main([]),
     "launch": lambda: launch.launch("time:sleep", 1, args=(0,)),
     "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
     "dryrun_cli": lambda: dryrun.main(["2"]),
