@@ -9,7 +9,11 @@ Phases, one line of output each (or a few):
              and the host chemistry library (g++), printing seconds and paths;
 2. kernels - K1 (decode attention), K2 (auction) and K3 (beam attention) on
              the card at their paths' shapes, each held against its plain
-             PyTorch version (K2 also against scipy), with times;
+             PyTorch version (K2 also against scipy), with times; E1 (the
+             fixed-order gradient of the trained lookup tables) at the
+             tables' training shapes against its plain version in float64
+             and against itself run twice, with times beside
+             ``aten.embedding_dense_backward``'s;
 3. main    - ``evaluate_molecules`` as bench.py's e2e mode runs it: the full
              width of ``ModelConfig()`` with the committed phase3 weights on 8
              simulated molecules, fan-out 128, bf16 decoding, CLIP scoring
@@ -33,8 +37,8 @@ Phases, one line of output each (or a few):
              in the pools, every gated beam and greedy hypothesis checked to
              be there;
 6. train   - the trainer at the full width of ``ModelConfig()`` from phase3,
-             no kernel of its own (the JAX training path reaches no Pallas
-             kernel): 256 factory molecules simulated on the card, the
+             its lookup tables' gradients through E1 (the JAX training path
+             reaches no Pallas kernel): 256 factory molecules simulated on the card, the
              training 90% augmented 2x with SMILES variants, batch 64, the
              device-resident dataset. Median step time after 5 warm-up steps,
              samples/s, target tokens/s and peak memory in bf16 mixed
@@ -43,7 +47,8 @@ Phases, one line of output each (or a few):
              validation, the per-epoch plateau and checkpoints, first and last
              loss, and every 10 steps the in-training generation metrics with
              every auxiliary term live (greedy decodes through K1, whose
-             launches are counted; spectral feedback simulated on the card).
+             launches are counted, as E1's are: 3 a step; spectral feedback
+             simulated on the card).
              Checks: one fp32 step (dropout and TF32 off) on the card
              against the CPU; 30 fp32 steps from the port's own init halve the
              loss on one batch of 8; a checkpoint resumed at step 3 continues
@@ -182,7 +187,21 @@ Phases, one line of output each (or a few):
              stderr; every e2e rep launched K1 and K2, every beam call K3 768
              times (128 steps x 6 layers); the report's shares of the bf16 and
              HBM peaks lie in (0, 1.05]. The lines, reps, stage seconds,
-             launches, peak memory and the phase's seconds.
+             launches, peak memory and the phase's seconds;
+14. repro  - reproducible training under PyTorch's default algorithms, by
+             ``scripts/torch_train_determinism.py``'s runs in this process,
+             each run held bit for bit against the first (losses and every
+             parameter): ``run_training`` from phase3, 5 bf16 steps at batch
+             64 on phase 6's records, 40 runs; the CLIP tower from clip_r4 at
+             batch 256 and the BLIP tower at ``QFormerConfig()`` and batch
+             32, 3 steps over the frozen phase3 encode, 10 runs each; the
+             shift and IR trainers, 5 steps at batch 256 and 128, 10 runs
+             each. E1's launches are counted from 0 for each trainer (3, 2,
+             2, 0 and 0 a step). Then the script's ``--step-times`` in a
+             process of its own: the median MMT, CLIP and BLIP steps with the
+             former lookups, through E1, and with the former under the
+             deterministic switch, in turn on the same batches. Its output
+             under ``chiprun_out/determinism/``.
 
 The simulator's GNN weights must load before anything runs: without them
 the factory falls back to its rule teachers and every phase would score
@@ -230,6 +249,10 @@ K2_SOURCE = "multimodalspectraltransformer_torch/csrc/auction.cu"
 K2_REPLACES = "multimodalspectraltransformer_tpu/ops/auction.py:30"
 K3_SOURCE = "multimodalspectraltransformer_torch/csrc/beam_attention.cu"
 K3_REPLACES = "multimodalspectraltransformer_tpu/ops/beam_attention.py:34"
+E1_SOURCE = "multimodalspectraltransformer_torch/csrc/embedding_grad.cu"
+# no Pallas kernel: the gradient of the JAX package's target-token lookup
+# (flax's nn.Embed), which XLA computes as a scatter-add
+E1_REPLACES = "multimodalspectraltransformer_tpu/models/mmt.py:123"
 PHASE3 = "weights/mmt_r4_phase3.msgpack.gz"
 CLIP_R4 = "weights/clip_r4.msgpack.gz"
 # the accuracy report's pinned held-out molecules and their records
@@ -495,6 +518,90 @@ def check_k3(dev) -> dict:
                 f"by CUDA events around the graph, "
                 f"{'not measured' if prof is None else f'{prof:.5f} ms'} by torch.profiler")
     return rows["B=128 K=5 Dh=8 bfloat16 pos=63"]
+
+
+def measure_e1(grad, ids, V: int, label: str, timed: bool) -> dict:
+    """Hold E1 (the wrapper: stable sort and kernel) against its plain
+    version on (grad, ids) computed in float64: every element within 1e-6 of
+    its table row's largest magnitude for a float32 gradient, within one
+    bfloat16 rounding more (2^-8 + 1e-6 of it) for a bfloat16 one (the
+    float32 sum is rounded once to bfloat16), within 1e-12 for a float64
+    one (phase 10's tensor-parallel check steps in float64); a row no id
+    reaches exactly 0; a second call bit for bit the first. The difference from the
+    plain version in the gradient's own dtype (a float32 ``index_add_``,
+    whose sum order on the card varies) is logged beside it. With ``timed``
+    also time E1 (cold device time and eager), the plain version and
+    ``aten.embedding_dense_backward`` (PyTorch's backward of ``F.embedding``),
+    and compute the bound: the gradient and the ids read once, the table's
+    gradient written once, over the memory rate."""
+    import torch
+
+    from multimodalspectraltransformer_torch.ops import embedding_grad as e1
+
+    out = e1.embedding_grad(grad, ids, V)
+    again = e1.embedding_grad(grad, ids, V)
+    ref = e1.embedding_grad_plain(grad.double(), ids, V)
+    plain = e1.embedding_grad_plain(grad, ids, V)
+    torch.cuda.synchronize()
+    rtol = {torch.float32: 1e-6, torch.bfloat16: 2.0**-8 + 1e-6,
+            torch.float64: 1e-12}[grad.dtype]
+    diff = (out.double() - ref).abs()
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    rel = float((diff / scale.clamp_min(1e-300)).max())
+    unreached = torch.ones(V, dtype=torch.bool, device=ids.device)
+    unreached[ids.reshape(-1)] = False
+    zero = bool((out[unreached] == 0).all())
+    same = torch.equal(out, again)
+    err = float(diff.max())
+    ok = bool((diff <= rtol * scale).all()) and zero and same and out.dtype == grad.dtype
+    log(f"[kernels] E1 {label}: max_abs_err={err:.3e} (max {rel:.2e} of its row's largest, tol "
+        f"{rtol:.1e}), against the plain version in {str(grad.dtype)[6:]} "
+        f"{float((out.double() - plain.double()).abs().max()):.3e}; {int(unreached.sum())} rows "
+        f"unreached, {'all 0' if zero else 'NOT 0'}; a second call "
+        f"{'bit for bit the same' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"E1 disagrees with its plain version or with itself ({label})")
+    if not timed:
+        return {}
+    N, D = ids.numel(), grad.shape[-1]
+    device_ms = kt.graph_ms(lambda g_, i_: e1.embedding_grad(g_, i_, V), (grad, ids), 200)
+    ms = kt.cuda_ms(lambda: e1.embedding_grad(grad, ids, V), 200)
+    plain_ms = kt.cuda_ms(lambda: e1.embedding_grad_plain(grad, ids, V), 50)
+    lib_ms = kt.cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(grad, ids, V, -1, False),
+                        50)
+    nbytes = N * D * grad.element_size() + N * ids.element_size() + V * D * grad.element_size()
+    row = dict(max_abs_err=err, max_rel_err=rel, device_ms=device_ms, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms,
+               **bound_row(device_ms, nbytes / HBM_BYTES_PER_S, N * D / F32_FLOPS))
+    log(f"[kernels] E1 {label}: device {device_ms:.5f} ms cold ({row['bound_share']:.1%} of the "
+        f"bound {row['bound_ms']:.5f} ms, {row['bound_by']}), eager {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, embedding_dense_backward {lib_ms:.4f} ms")
+    return row
+
+
+def check_e1(dev) -> dict:
+    """E1 at the trained tables' shapes (``kernel_timing.E1_TIMED``) with
+    float32, bfloat16 and float64 gradients, at the decoder's positions over the whole
+    batch (64 x 63) and at CLIP's longest text (256 x 128), all ids of one
+    value and a table row per id; then the timed shapes, each in its training
+    dtype. Returns the row of the MMT's target-token table."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(t, V, D, rc, draw) for t, V, D, rc, _, draw in kt.E1_TIMED]
+    shapes += [("MMT pe_trg, whole batch", 128, 128, (64, 63), "arange"),
+               ("CLIP word, longest text", 600, 768, (256, 128), 0.5),
+               ("CLIP position, longest text", 130, 768, (256, 128), "roberta"),
+               ("one id", 43, 128, (64, 63), 1.0), ("a row per id", 600, 64, (1, 600), "arange")]
+    for table, V, D, (rows, cols), draw in shapes:
+        ids = kt.e1_ids(gen, V, rows, cols, draw, dev)
+        grad = torch.randn(rows, cols, D, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            measure_e1(grad.to(dtype), ids, V, f"{table} V={V} D={D} N={rows * cols} "
+                       f"{str(dtype)[6:]}", timed=False)
+    rows = {label: measure_e1(grad, ids, V, label, timed=True)
+            for label, grad, ids, V in kt.e1_cases(dev)}
+    return rows["MMT embed_trg V=43 D=128 N=4032 bfloat16"]
 
 
 # ---------------------------------------------------------------------------
@@ -1064,6 +1171,7 @@ def train_phase(dev, card: str):
 
     from multimodalspectraltransformer_torch.models import convert, mmt
     from multimodalspectraltransformer_torch.ops import decode_attention as k1
+    from multimodalspectraltransformer_torch.ops import embedding_grad as e1
     from multimodalspectraltransformer_torch.train import checkpoint as ckpt
     from multimodalspectraltransformer_torch.train import loop, step
     from multimodalspectraltransformer_torch.train import state as st
@@ -1095,6 +1203,7 @@ def train_phase(dev, card: str):
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         k1.reset_launches()
+        e1.reset_launches()
         t0 = time.perf_counter()
         res = loop.run_training(bf16, loader, val_loader=val, init_params=init,
                                 checkpoint_dir=os.path.join(tmp, "ckpt"), max_steps=40, device=dev,
@@ -1102,7 +1211,7 @@ def train_phase(dev, card: str):
                                 gen_metrics_every=10)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        gen_k1 = k1.launches
+        gen_k1, train_e1 = k1.launches, e1.launches
         hist = [x for x in res.metrics.history if "train_loss" in x]
         vals = [x["val_loss"] for x in res.metrics.history if "val_loss" in x]
         saved = sorted(os.listdir(os.path.join(tmp, "ckpt")))
@@ -1121,7 +1230,11 @@ def train_phase(dev, card: str):
     for gm in gms:
         log(f"[train] generation metrics at step {gm['step']:.0f} (batch 64, greedy through K1): "
             + ", ".join(f"{k}={v:.6g}" for k, v in gm.items() if k != "step"))
-    log(f"[train] launches by the generation metrics in run_training: K1={gen_k1}")
+    log(f"[train] launches in run_training: K1={gen_k1} (the generation metrics), E1={train_e1} "
+        f"(the gradients of the MF, target-token and position tables, "
+        f"{train_e1 / res.steps:g} a step)")
+    if train_e1 != E1_A_STEP["mmt"] * res.steps:
+        raise AssertionError(f"run_training launched E1 {train_e1} times in {res.steps} steps")
     if [gm["step"] for gm in gms] != [10, 20, 30, 40] or gen_k1 <= 0 or not all(
             np.isfinite([gm["sgnn_sim_error"], gm["aux_loss_total"]]).all() for gm in gms):
         raise AssertionError("run_training did not log finite generation metrics every 10 "
@@ -1156,7 +1269,7 @@ def train_phase(dev, card: str):
         raise AssertionError("a training loss is not finite")
     log(f"[check] check 5: all {len(losses)} training and validation losses finite; the training "
         f"phase took {time.perf_counter() - t_phase:.1f} s")
-    return recs
+    return recs, train_e1
 
 
 # ---------------------------------------------------------------------------
@@ -2203,10 +2316,11 @@ def _rank_nccl_training(records) -> dict:
     """Check (a), in a world of one rank over NCCL: ``run_training`` for 5
     bf16 steps from phase3, without a mesh and with ``make_mesh()``; both
     runs' losses and parameters. Both runs use PyTorch's deterministic
-    algorithms: the CUDA backward of ``F.embedding`` otherwise sums a token's
-    rows in a varying order, and two runs of the same path can differ in
-    ``embed_trg.weight`` (7 of 40 runs on an H100 differed from the first
-    there; ``scripts/torch_train_determinism.py`` repeats this)."""
+    algorithms, as they did when the CUDA backward of ``F.embedding`` summed
+    a token's rows in a varying order (7 of 40 runs on an H100 then differed
+    from the first in ``embed_trg.weight``); the lookups' gradients now go
+    through E1, and phase 14 holds run_training to itself under the default
+    algorithms."""
     import torch
 
     from multimodalspectraltransformer_torch import parallel
@@ -3380,6 +3494,74 @@ def bench_phase(card: str) -> None:
         f"{log_path})")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: reproducible training
+# ---------------------------------------------------------------------------
+
+REPRO_RUNS = {"mmt": 40, "clip": 10, "blip": 10, "shift": 10, "ir": 10}
+# E1 launches a train step: the MMT's MF, target-token and position tables;
+# the CLIP text tower's word and position tables (BLIP's text tower is one);
+# the simulators' GNNs have no lookup table
+E1_A_STEP = {"mmt": 3, "clip": 2, "blip": 2, "shift": 0, "ir": 0}
+REPRO_OUT = os.path.join("chiprun_out", "determinism")
+
+
+def repro_phase(dev, card: str, phase6_records) -> None:
+    """Phase 14 (see the module docstring)."""
+    import torch
+
+    from multimodalspectraltransformer_torch.ops import embedding_grad as e1
+
+    t_phase = time.perf_counter()
+    det = _load_file(os.path.join("scripts", "torch_train_determinism.py"))
+    os.makedirs(REPRO_OUT, exist_ok=True)
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("phase 14 must run under PyTorch's default algorithms")
+    failed = []
+    for trainer, reps in REPRO_RUNS.items():
+        batch, steps = det.RECIPES[trainer]
+        e1.reset_launches()
+        rows = det.trainer_runs(trainer, dev, reps, 0, records=phase6_records)
+        launches = e1.launches
+        with open(os.path.join(REPRO_OUT, f"{trainer}.json"), "w") as f:
+            json.dump(rows, f, indent=1)
+        bad = [r for r in rows if det.differs(r)]
+        for r in bad:
+            log(f"[repro] {trainer} run {r['rep']} differs from the first: losses "
+                f"{'equal' if r['losses_equal'] else 'differ'}, first gradient difference "
+                f"{r['first_gradient_difference']}, at the end {r['tensors_differ']}")
+        log(f"[repro] {trainer}: {len(bad)} of {len(rows)} runs of {steps} steps at batch {batch} "
+            f"differ from the first under PyTorch's default algorithms; final loss "
+            f"{rows[0]['final_loss']:.6f}; E1 launched {launches} times "
+            f"({launches / (len(rows) * steps):g} a step); "
+            f"{sum(r['secs'] for r in rows) / len(rows):.2f} s a run")
+        if bad or len(rows) != reps or launches != E1_A_STEP[trainer] * reps * steps:
+            failed.append(trainer)
+
+    cmd = [sys.executable, os.path.join("scripts", "torch_train_determinism.py"), "--step-times",
+           "--out", os.path.join(REPRO_OUT, "step_times.json")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    with open(os.path.join(REPRO_OUT, "step_times.log"), "w") as f:
+        f.write(f"$ {' '.join(cmd)}\n{proc.stderr}{proc.stdout}\n")
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    times = json.loads(proc.stdout.splitlines()[-1])
+    for trainer in ("mmt", "clip", "blip"):
+        t = times[trainer]
+        log(f"[repro] {trainer} step at batch {t['batch']} (median of 12 after 3 warm-up, one "
+            f"step of each way in turn): {t['today_ms']:.3f} ms with the former lookups, "
+            f"{t['e1_ms']:.3f} ms through E1 ({t['e1_launches_a_step']} launches a step), "
+            f"{t['switch_ms']:.3f} ms with the former lookups under "
+            f"torch.use_deterministic_algorithms; {card}")
+        if t["e1_launches_a_step"] != E1_A_STEP[trainer]:
+            failed.append(f"{trainer} step times")
+    log(f"[repro] the phase took {time.perf_counter() - t_phase:.1f} s (runs and step times under "
+        f"{REPRO_OUT}/)")
+    if failed:
+        raise AssertionError(f"training is not reproducible run to run, or E1 did not launch as "
+                             f"expected: {failed}")
+
+
 def require_simulator_weights(dev) -> None:
     """Fail unless the simulator's GNN weights load: without them
     ``simulate_records`` falls back to the rule teachers (as the JAX package
@@ -3431,9 +3613,10 @@ def main() -> int:
     k1_row = check_k1(dev)
     check_k2(dev)
     k3_row = check_k3(dev)
+    e1_row = check_e1(dev)
     launches, hsqc_cost, (records, model, dcfg, results) = main_path(dev)
     launches["K3"] = beam_path(dev, model, records, dcfg, results)
-    phase6_records = train_phase(dev, card)
+    phase6_records, launches["E1"] = train_phase(dev, card)
     serve_phase(dev, card)
     contrastive_phase(dev, card, phase6_records, (records, model, dcfg))
     tools_phase(dev, card, phase6_records, (records, model, dcfg))
@@ -3445,6 +3628,8 @@ def main() -> int:
     campaign_phase(dev, card)
     torch.cuda.empty_cache()  # the benches run in processes of their own on this card
     bench_phase(card)
+    torch.cuda.empty_cache()
+    repro_phase(dev, card, phase6_records)
     if args.save_hsqc:
         torch.save(hsqc_cost.cpu(), args.save_hsqc)
 
@@ -3457,6 +3642,8 @@ def main() -> int:
              launches=launches["K2"], **k2_row),
         dict(name="beam_attention", route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,
              launches=launches["K3"], **k3_row),
+        dict(name="embedding_grad", route="cuda", source=E1_SOURCE, replaces=E1_REPLACES,
+             launches=launches["E1"], **e1_row),
     ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

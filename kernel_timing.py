@@ -1,4 +1,4 @@
-"""Timers and the timed shapes of the port's kernels K1, K2 and K3.
+"""Timers and the timed shapes of the port's kernels K1, K2, K3 and E1.
 
 ``chip_smoke.py`` and ``scripts/torch_kernel_times.py`` both time the shapes
 listed here with the timers here, so the smoke run and a comparison of two
@@ -9,7 +9,8 @@ can time the package of another tree (``--pkg-root``) with them.
 - ``graph_ms``: cold device time per launch, one CUDA-graph replay of
   launches over enough copies of the inputs that one pass exceeds the L2;
 - ``cuda_ms``: eager time per call, which includes the host's enqueue;
-- ``k1_cases``, ``k2_cases``, ``k3_cases``: the timed inputs, from seeds.
+- ``k1_cases``, ``k2_cases``, ``k3_cases``, ``e1_cases``: the timed inputs,
+  from seeds.
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ K1_TIMED = ((1024, torch.float32), (1024, torch.bfloat16), (6144, torch.float32)
 K2_TIMED = (("HSQC-like", 480, 64), ("uniform", 48, 160), ("uniform", 8, 300))  # (kind, B, N)
 K3_TIMED = ((128, 5), (32, 10))  # (B, K): H=16, Dh=8, T=128 at pos 0, 63, 127, fp32 and bf16
 K3_POSITIONS = (0, 63, 127)
+# (table, V, D, ids [rows, cols], gradient dtype, draw): the trained lookup
+# tables at their training batches. A float draw p: padding id 0 with
+# probability p, else uniform; "arange": the decoder's positions; "roberta":
+# the CLIP text tower's position ids (0 on padding, 1.. on the tokens)
+E1_TIMED = (("MMT embed_trg", 43, 128, (64, 63), torch.bfloat16, 0.5),
+            ("MMT pe_trg", 128, 128, (1, 63), torch.bfloat16, "arange"),
+            ("MMT MF", 213, 128, (64, 64), torch.bfloat16, 0.85),
+            ("CLIP word", 600, 768, (256, 64), torch.float32, 0.5),
+            ("CLIP position", 130, 768, (256, 64), torch.float32, "roberta"),
+            ("Q-Former word", 43, 768, (32, 64), torch.float32, 0.5))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -157,3 +168,24 @@ def k3_cases(dev, ancestry_bias_fn):
             for dtype in (torch.float32, torch.bfloat16):
                 yield (f"B={B} K={K} Dh={Dh} {str(dtype)[6:]} pos={pos}", q32.to(dtype),
                        kv32.to(dtype), bias32.to(dtype), (pos + 1) * K)
+
+
+def e1_ids(gen, V: int, rows: int, cols: int, draw, dev) -> torch.Tensor:
+    """[rows, cols] int64 lookup ids drawn as ``E1_TIMED`` says."""
+    if draw == "arange":
+        return torch.arange(cols, device=dev).expand(rows, cols).contiguous()
+    if draw == "roberta":
+        lengths = torch.randint(8, cols + 1, (rows, 1), generator=gen, device=dev)
+        mask = (torch.arange(cols, device=dev)[None] < lengths).long()
+        return torch.cumsum(mask, dim=1) * mask
+    pad = torch.rand(rows, cols, generator=gen, device=dev) < draw
+    return torch.where(pad, 0, torch.randint(0, V, (rows, cols), generator=gen, device=dev))
+
+
+def e1_cases(dev):
+    """(label, grad, ids, V) of E1's timed shapes, from seed 4."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for table, V, D, (rows, cols), dtype, draw in E1_TIMED:
+        ids = e1_ids(gen, V, rows, cols, draw, dev)
+        grad = torch.randn(rows, cols, D, generator=gen, device=dev).to(dtype)
+        yield f"{table} V={V} D={D} N={rows * cols} {str(dtype)[6:]}", grad, ids, V

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.embedding_grad import embedding_lookup
 from ..utils.config import ModelConfig
 from ..utils.device import DeviceLike, resolve_device
 from .convert import ENCODER_TORCH_PREFIXES, SPEC_EMBED_TORCH_KEYS, from_jax_params, read_msgpack
@@ -290,8 +291,9 @@ def split_generator(generator: Optional[torch.Generator], n: int) -> list[Option
 
 
 def _embed(table: nn.Embedding, ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """flax's Embed with ``dtype=``: the table cast to ``dt``, then the rows."""
-    return F.embedding(ids.long(), table.weight.to(dt))
+    """flax's Embed with ``dtype=``: the table cast to ``dt``, then the rows
+    (their gradient summed in a fixed order by kernel E1)."""
+    return embedding_lookup(table.weight.to(dt), ids)
 
 
 @torch.no_grad()

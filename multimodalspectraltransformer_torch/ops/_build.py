@@ -35,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each launcher: (argtypes), all returning cudaError_t as int
 SIGNATURES = {
     # q, kv, out, B, H, T, Dh, pos, is_bf16, stream
@@ -44,6 +45,8 @@ SIGNATURES = {
     "mmt_auction": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # q, kv, bias, out, B, H, K, M, Dh, n_live, group, is_bf16, stream
     "mmt_beam_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # grad, sorted_ids, order, out, n, num_weights, dim, dtype, stream
+    "mmt_embedding_grad": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
 }
 
 

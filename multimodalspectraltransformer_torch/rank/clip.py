@@ -46,6 +46,7 @@ from torch.func import functional_call
 
 from ..models.convert import from_jax_clip_params, read_msgpack, to_jax_clip_params, write_msgpack
 from ..models.layers import TransformerEncoder, dropout, gelu_exact, make_generator
+from ..ops.embedding_grad import embedding_lookup
 from ..utils.device import DeviceLike, resolve_device
 
 LN_EPS = 1e-5
@@ -120,8 +121,8 @@ class RobertaStyleEncoder(nn.Module):
         seeds = dropout_seeds(self, self.cfg.dropout, generator, 1 + self.cfg.text_layers)
         # Roberta position ids: cumsum over the mask plus the pad-token offset
         positions = torch.cumsum(attention_mask, dim=1) * attention_mask + self.cfg.pad_token_id
-        word = self.word_embeddings.weight.to(emb_dtype)[tokens.long()]
-        pos = self.position_embeddings.weight.to(emb_dtype)[positions.long()]
+        word = embedding_lookup(self.word_embeddings.weight.to(emb_dtype), tokens)
+        pos = embedding_lookup(self.position_embeddings.weight.to(emb_dtype), positions)
         x = word + pos + self.token_type_embedding.to(emb_dtype)
         x = _layer_norm(x, self.emb_norm)
         x = dropout(x, self.cfg.dropout, make_generator(seeds[0], x.device)).float()

@@ -36,6 +36,7 @@ from torch import nn
 from ..models.layers import (LayerNorm, Linear, MultiheadAttention, dropout, gelu_exact,
                              init_like_flax, make_generator)
 from ..models.mmt import split_generator
+from ..ops.embedding_grad import embedding_lookup
 from .clip import (CLIPConfig, ProjectionHead, RobertaStyleEncoder, _f32, clip_loss,
                    dropout_seeds)
 
@@ -71,7 +72,8 @@ class TextEmbeddings(nn.Module):
         self.norm = LayerNorm(cfg.hidden, eps=LN_EPS)
 
     def forward(self, tokens: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        x = self.word_embeddings(tokens.long()) + self.position_embeddings[None, : tokens.shape[1]]
+        x = (embedding_lookup(self.word_embeddings.weight, tokens)
+             + self.position_embeddings[None, : tokens.shape[1]])
         x = self.norm(x)
         return dropout(x, self.p, make_generator(seed, x.device) if self.training else None)
 

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Cold device times of the port's kernels K1, K2 and K3, for one tree of the
-port, so that two commits can be compared on one card.
+"""Cold device times of the port's kernels K1, K2, K3 and E1, for one tree of
+the port, so that two commits can be compared on one card.
 
     python3 scripts/torch_kernel_times.py [--pkg-root DIR] [--label NAME]
-        [--kernels K1,K2,K3] [--hsqc PATH] [--out FILE]
+        [--kernels K1,K2,K3,E1] [--hsqc PATH] [--out FILE]
 
 The kernels come from ``multimodalspectraltransformer_torch`` under
 ``--pkg-root`` (default: this repository), built there. The timers and the
 timed shapes come from this repository's ``kernel_timing.py``, the ones
 ``chip_smoke.py`` times: ``graph_ms`` (one CUDA-graph replay over enough
 input copies to exceed the L2, between CUDA events) and ``cuda_ms`` (eager
-calls), at the shapes of ``k1_cases``, ``k2_cases`` and ``k3_cases``, and
+calls), at the shapes of ``k1_cases``, ``k2_cases``, ``k3_cases`` and
+``e1_cases`` (E1: the stable sort and the kernel, as the wrapper runs them), and
 for K2 also the main path's HSQC cost saved by ``chip_smoke.py --save-hsqc``
 (``--hsqc``). K2's rows carry the rounds of the slowest problem (from the
 plain version) and the time per round. A shape that the tree's wrapper
@@ -37,7 +38,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pkg-root", default=REPO, help="directory holding the package to time")
     ap.add_argument("--label", default="change")
-    ap.add_argument("--kernels", default="K1,K2,K3", help="comma-separated subset of K1,K2,K3")
+    ap.add_argument("--kernels", default="K1,K2,K3,E1",
+                    help="comma-separated subset of K1,K2,K3,E1")
     ap.add_argument("--hsqc", help="HSQC cost tensor saved by chip_smoke.py --save-hsqc")
     ap.add_argument("--out", default="runs/torch_kernel_times.jsonl")
     args = ap.parse_args()
@@ -101,6 +103,15 @@ def main() -> int:
                  device_ms=kt.graph_ms(lambda q_, kv_, b_: k3.beam_attention(q_, kv_, b_, n_live),
                                        (q, kv, bias), 200),
                  ms=kt.cuda_ms(lambda: k3.beam_attention(q, kv, bias, n_live), 200))
+
+    if "E1" in kernels:  # a tree from before E1 has no ops/embedding_grad.py
+        from multimodalspectraltransformer_torch.ops import embedding_grad as e1
+
+        for label, grad, ids, V in kt.e1_cases(dev):
+            emit("E1", label,
+                 device_ms=kt.graph_ms(lambda g_, i_: e1.embedding_grad(g_, i_, V), (grad, ids),
+                                       200),
+                 ms=kt.cuda_ms(lambda: e1.embedding_grad(grad, ids, V), 200))
     return 0
 
 

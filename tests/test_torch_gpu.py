@@ -23,6 +23,7 @@ from multimodalspectraltransformer_torch.decode import functional as tf
 from multimodalspectraltransformer_torch.ops import auction as tk2
 from multimodalspectraltransformer_torch.ops import beam_attention as tk3
 from multimodalspectraltransformer_torch.ops import decode_attention as tk1
+from multimodalspectraltransformer_torch.ops import embedding_grad as te1
 from multimodalspectraltransformer_torch.rank import clip as tclip
 from multimodalspectraltransformer_torch.rank import matching as tm
 
@@ -406,6 +407,73 @@ def test_vectordb_topk_on_gpu_matches_cpu_with_ties(cuda_device, metric):
     s_gpu, i_gpu, _ = vectordb.query(db, q, k=50, metric=metric, device=cuda_device)
     np.testing.assert_array_equal(i_gpu, i_cpu)
     np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-6, atol=1e-6 * np.abs(s_cpu).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("table", [t[0] for t in kt.E1_TIMED])
+def test_embedding_grad_kernel_matches_plain_on_gpu(cuda_device, table, dtype):
+    """E1 at a trained table's training shape against its plain version in
+    float64: within 1e-6 of each table row's largest magnitude for a float32
+    gradient, one bfloat16 rounding more (2^-8 + 1e-6) for a bfloat16 one,
+    1e-12 for a float64 one; unreached rows exactly 0; the launch counted."""
+    _, V, D, (rows, cols), _, draw = next(t for t in kt.E1_TIMED if t[0] == table)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    ids = kt.e1_ids(gen, V, rows, cols, draw, cuda_device)
+    grad = torch.randn(rows, cols, D, generator=gen, device=cuda_device).to(getattr(torch, dtype))
+    te1.reset_launches()
+    out = te1.embedding_grad(grad, ids, V)
+    assert te1.launches == 1 and out.dtype == grad.dtype and out.shape == (V, D)
+    ref = te1.embedding_grad_plain(grad.double(), ids, V)
+    rtol = {"float32": 1e-6, "bfloat16": 2.0**-8 + 1e-6, "float64": 1e-12}[dtype]
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert bool(((out.double() - ref).abs() <= rtol * scale).all())
+    unreached = torch.ones(V, dtype=torch.bool, device=cuda_device)
+    unreached[ids.reshape(-1)] = False
+    assert bool((out[unreached] == 0).all())
+
+
+@pytest.mark.gpu
+def test_embedding_grad_kernel_repeats_bit_for_bit(cuda_device):
+    """E1 twice on the same inputs, at every timed shape: the same bits; so
+    is a lookup's parameter gradient taken twice through autograd."""
+    for _, grad, ids, V in kt.e1_cases(cuda_device):
+        assert torch.equal(te1.embedding_grad(grad, ids, V), te1.embedding_grad(grad, ids, V))
+    w = torch.randn(43, 128, device=cuda_device, requires_grad=True)
+    ids = torch.randint(0, 43, (64, 63), device=cuda_device)
+    g = torch.randn(64, 63, 128, device=cuda_device).bfloat16()
+    grads = []
+    for _ in range(2):
+        w.grad = None
+        te1.embedding_lookup(w.bfloat16(), ids).backward(g)
+        grads.append(w.grad.clone())
+    assert torch.equal(*grads)
+
+
+@pytest.mark.gpu
+def test_run_training_twice_bit_for_bit_on_gpu(cuda_device):
+    """``run_training`` at full width from the seeded init, 3 bf16 steps at
+    batch 64, twice under PyTorch's default algorithms: the same losses and
+    every parameter the same bits; E1 launched 3 times a step."""
+    from multimodalspectraltransformer_torch.data import pipeline as dp
+    from multimodalspectraltransformer_torch.train import loop
+    from multimodalspectraltransformer_torch.utils.config import MMTConfig, ModelConfig, TrainConfig
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = MMTConfig(model=ModelConfig(), train=TrainConfig(learning_rate=3e-5,
+                                                           mixed_precision=True))
+    records = dp.synthetic_dataset(192, seed=7)
+    runs = []
+    for _ in range(2):
+        te1.reset_launches()
+        res = loop.run_training(cfg, dp.Loader(records, cfg.model, batch_size=64), max_steps=3,
+                                device=cuda_device)
+        assert te1.launches == 9
+        runs.append(([h["train_loss"] for h in res.metrics.history],
+                     {k: v.cpu() for k, v in res.state.model.state_dict().items()}))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
 
 
 # ---------------------------------------------------------------------------

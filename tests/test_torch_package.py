@@ -39,7 +39,7 @@ def _one_torch_thread():
 PORT_MODULES = [
     "multimodalspectraltransformer_torch." + m
     for m in ("models.convert", "models.mmt", "ops.decode_attention", "ops.auction",
-              "ops.beam_attention", "decode", "decode.functional", "decode.samplers",
+              "ops.beam_attention", "ops.embedding_grad", "decode", "decode.functional", "decode.samplers",
               "eval.generation", "eval.harness", "eval.beam_bench", "rank.matching", "rank.clip",
               "rank.qformer",
               "sim.factory", "sim.distill", "sim.gnn", "data.pipeline", "data.molrandom",
